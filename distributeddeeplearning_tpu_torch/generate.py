@@ -33,10 +33,10 @@ _EMBEDDINGS = ("wte", "embed_tokens")
 
 def load_model(name: str, params_path: str, *, attn: str = "dense",
                seq_len: Optional[int] = None,
-               vocab_size: Optional[int] = None, device=None,
-               dtype: torch.dtype = torch.float32):
-    """Build registry model ``name`` and load a flax-layout ``.npz`` into it.
-    The vocabulary defaults to the rows of the file's token embedding."""
+               vocab_size: Optional[int] = None, device=None):
+    """Build registry model ``name`` in float32 and load a flax-layout
+    ``.npz`` into it. The vocabulary defaults to the rows of the file's token
+    embedding."""
     with np.load(params_path) as npz:
         state = params_from_flax(dict(npz))
     if vocab_size is None:
@@ -45,7 +45,7 @@ def load_model(name: str, params_path: str, *, attn: str = "dense",
             raise ValueError(f"{params_path}: no token embedding "
                              f"({' or '.join(_EMBEDDINGS)}) in the params")
         vocab_size = rows[0]
-    model = get_model(name, dtype=dtype, device=device,
+    model = get_model(name, dtype=torch.float32, device=device,
                       vocab_size=vocab_size, seq_len=seq_len,
                       attention_impl=attn)
     model.load_state_dict(state)

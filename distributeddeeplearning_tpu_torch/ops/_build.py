@@ -5,7 +5,9 @@ Each ``csrc/*.cu`` file exposes a plain C interface, so it compiles in
 seconds without PyTorch's headers. The shared library lands in the git-ignored
 ``.cache/torch_kernels/`` of the checkout, keyed by a hash of the source and
 the flags, so an edited source rebuilds and an unchanged one loads as is.
-Nothing is built when a module is imported; a failed build raises.
+Nothing is built when a module is imported; a failed build raises. The port
+runs from a checkout: the sources are read from, and built into, the tree
+that holds this package, and an installed copy carries no ``csrc/*.cu``.
 """
 
 from __future__ import annotations
