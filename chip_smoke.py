@@ -8,17 +8,31 @@ Run from the root of a checkout. Phases:
 1. the card: ``nvidia-smi`` name and power limit;
 2. build every kernel of the port from ``distributeddeeplearning_tpu_torch/
    csrc`` (one ``nvcc`` per source, all started together), timed;
-3. each kernel against its plain PyTorch version on the card over a grid of
-   shapes, with its device time (CUDA-graph replay, no host launch work),
-   its eager per-call time, the plain version's and the one-call library
-   yardstick's device times, and the roofline bound;
-4. the main path: GPT-2 small at full width in float32, seeded weights
+3. the flash forward against its plain PyTorch version on the card over a
+   grid of shapes, with its device time (CUDA-graph replay, no host launch
+   work), its eager per-call time, the plain version's and the one-call
+   library yardstick's device times, and the roofline bound;
+4. the sampling path: GPT-2 small at full width in float32, seeded weights
    written as a flax-layout ``.npz``, 4 prompts x 128 tokens, 32 greedy new
    tokens through ``python -m distributeddeeplearning_tpu_torch.generate
    --attn flash``; the kernel counts must show 12 layers x 32 steps of
-   launches, the logits must agree with the dense impl, and the KV-cache
-   path is run too; tokens/s and a device-time profile of one step;
-5. TinyLlama-1.1B widths at 2 layers through the kernel, against dense.
+   forward launches, the logits must agree with the dense impl, and the
+   KV-cache path is run too; tokens/s and a device-time profile of one step;
+5. TinyLlama-1.1B widths at 2 layers through the kernel, against dense;
+6. the backward and dropout grid: the dq and dk/dv kernels against the plain
+   backward, and the forward with dropout against its plain version, over S
+   in {160, 1024, 4096} x D in {64, 128} x {f32, bf16} x {causal, full} x
+   rate in {0, 0.1}, timed beside their bounds and, at rate 0, the backward
+   of ``scaled_dot_product_attention``;
+7. the training path's kernel rows, at its shape (B=16, S=1024, H=12, D=64,
+   bf16, causal, rate 0.1);
+8. the training path: ``python -m distributeddeeplearning_tpu_torch.train
+   --model gpt2_small --batch-size 16 --seq-len 1024 --attn flash
+   --synthetic`` for a few steps (bf16 compute, f32 masters, dropout 0.1);
+   each kernel must be launched 12 x steps times, every loss finite and the
+   first near ln(vocab); tokens/s and a device-time profile of one step;
+9. one training step at full width in f32 through flash and through dense
+   on the same batch and dropout seeds: loss and every gradient must agree.
 
 It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``. Any failed phase exits non-zero without that last line, and so
@@ -53,6 +67,14 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 # masked row, whose output is exactly 0, above 0.
 TOL = {"float32": (1e-4, 0.0), "bfloat16": (1e-6, 2 ** -6)}
 TOL_LSE = 1e-3
+# Backward kernels vs plain version, per output row (one query or key
+# position of one head), as (atol, rtol) of TOL: |g - ref| <= atol + rtol *
+# max|ref row|, fixed before the first run of this grid. f32 differs in
+# summation order. bf16 rounds ds and p_drop to bf16 from f32 values summed
+# in another order, and rounds the gradient once at the end. atol covers
+# rows that are zero in exact arithmetic (a causal first query: ds = 0),
+# where both sides hold f32 rounding noise: up to 1.5e-6 in the card tests.
+TOL_GRAD = {"float32": (1e-5, 1e-4), "bfloat16": (1e-5, 2 ** -5)}
 # Each timing runs its function for at least this long in all.
 MIN_TOTAL_MS = 30.0
 # Main path: GPT-2 small sampling.
@@ -62,6 +84,18 @@ LOGIT_TOL = 1e-3
 # An emitted greedy token's dense logit may sit this far below the dense
 # maximum (ties and near-ties between the impls).
 ARGMAX_TOL = 1e-4
+# Training path: GPT-2 small, batch 16 x 1024, bf16 compute, dropout 0.1.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 1024, 6
+VOCAB = 50257
+# The first loss sits near ln(vocab): random init, tied head logits with a
+# std of about 0.55, adding about 0.15.
+FIRST_LOSS_TOL = 0.5
+# Flash vs dense, one f32 training step of GPT-2 small at batch 4 x 1024:
+# the loss, and each gradient relative to max(its largest |ref|, 1e-4 of
+# the largest of all; the key bias gradient is zero in exact arithmetic).
+DENSE_BATCH = 4
+STEP_LOSS_TOL = 1e-4
+STEP_GRAD_TOL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -118,30 +152,56 @@ def device_ms(fn) -> float:
     return ms
 
 
+# Products per live (query, key) pair: the forward's s = q.k and p.v; dq's
+# s, dp = do.v and ds.k; dk/dv's s, dp, p_drop^T.do and ds^T.q.
+PRODUCTS = {"fwd": 2, "dq": 3, "dkv": 4}
+
+
 def flash_bound(mask: np.ndarray, h: int, d: int, causal: bool,
-                dtype: str) -> tuple[float, str]:
-    """The least time of the flash forward on these inputs. Bytes over HBM:
-    q read for the batch rows that keep any key, k and v read only for the
-    keys the mask keeps, the mask read, o and lse written, each once.
-    Operations at the dtype's peak: 4*D FLOPs for every (query, key) pair
-    the data needs (keys the mask keeps, under the diagonal when causal).
-    Returns (ms, bound_by)."""
+                dtype: str, kind: str = "fwd") -> tuple[float, str]:
+    """The least time of a flash kernel (``kind`` fwd, dq or dkv) on these
+    inputs. Bytes over HBM: q (and, backward, do) read for the batch rows
+    that keep any key, k and v read only for the keys the mask keeps, the
+    mask read, the (B, S, H, D) outputs written and the f32 row vectors (lse
+    written; lse and delta read backward), each once. Operations at the
+    dtype's peak: 2*D FLOPs per product for every (query, key) pair the data
+    needs (keys the mask keeps, under the diagonal when causal). Returns
+    (ms, bound_by)."""
     b, s = mask.shape
     keep = mask != 0
     row = h * d * (4 if dtype == "float32" else 2)  # one position's q/k/v/o
-    nbytes = (int(keep.any(axis=1).sum()) * s * row    # q
-              + 2 * int(keep.sum()) * row              # k, v
-              + b * s * row                            # o
-              + mask.size * 4 + b * h * s * 4)         # mask, lse
+    q_like, outs, vecs = {"fwd": (1, 1, 1), "dq": (2, 1, 2),
+                          "dkv": (2, 2, 2)}[kind]
+    nbytes = (q_like * int(keep.any(axis=1).sum()) * s * row   # q (do)
+              + 2 * int(keep.sum()) * row                      # k, v
+              + outs * b * s * row                             # o / grads
+              + mask.size * 4 + vecs * b * h * s * 4)          # mask, lse..
     if causal:
         pairs = int((keep * (s - np.arange(s))[None, :]).sum())
     else:
         pairs = int(keep.sum()) * s
-    flops = 4 * d * h * pairs
+    flops = 2 * d * PRODUCTS[kind] * h * pairs
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def row_error(out, ref, atol: float, rtol: float) -> tuple[float, float]:
+    """(max abs error, largest error as a share of its row's limit atol +
+    rtol * max|ref row|); a share <= 1 passes."""
+    diff = (out.float() - ref.float()).abs()
+    limit = atol + rtol * ref.float().abs().amax(dim=-1, keepdim=True)
+    return diff.max().item(), (diff / limit).max().item()
+
+
+def reset_counts(kernels) -> None:
+    for k in kernels:
+        setattr(k["module"], k["counter"], 0)
+
+
+def read_counts(kernels) -> dict:
+    return {k["name"]: getattr(k["module"], k["counter"]) for k in kernels}
 
 
 def phase_card() -> None:
@@ -156,7 +216,7 @@ def phase_build(kernels) -> None:
     from distributeddeeplearning_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    sources = sorted({k["module"].SOURCE for k in kernels})
+    sources = sorted({k["build"] for k in kernels})
     paths = _build.build(sources)
     for source in sources:
         _build.load_library(source)
@@ -318,20 +378,20 @@ def phase_gpt2(kernels, failures, scratch: Path) -> dict:
         argv += ["--prompt-ids", ",".join(map(str, row))]
     log(f"# gpt2_small: params written in {time.perf_counter() - t0:.2f} s")
 
-    for k in kernels:
-        k["module"].launches = 0
+    reset_counts(kernels)
     t0 = time.perf_counter()
     tokens = run_cli(argv)
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
-    launches = {k["name"]: k["module"].launches for k in kernels}
-    expected = 12 * NEW_TOKENS
+    launches = read_counts(kernels)
+    # Sampling runs the forward kernel only.
+    expected = {"flash_attention_fwd": 12 * NEW_TOKENS,
+                "flash_attention_dq": 0, "flash_attention_dkv": 0}
     log(f"# gpt2_small --attn flash: CLI {cli_s:.2f} s (load + sample), "
-        f"launches {launches}, expected flash_attention_fwd {expected}")
-    if launches["flash_attention_fwd"] != expected:
-        failures.append(f"flash_attention_fwd launched "
-                        f"{launches['flash_attention_fwd']} times on the "
-                        f"main path, expected {expected}")
+        f"launches {launches}, expected {expected}")
+    if launches != expected:
+        failures.append(f"sampling path launches {launches}, expected "
+                        f"{expected}")
     if [r[:PROMPT_LEN] for r in tokens] != prompts.tolist() or any(
             len(r) != total for r in tokens):
         failures.append("generate CLI returned malformed rows")
@@ -392,15 +452,40 @@ def phase_gpt2(kernels, failures, scratch: Path) -> dict:
     return launches
 
 
-def step_profile(label: str, step) -> None:
+# Kernel classes of a step profile, by a substring of the kernel's name; the
+# first match wins.
+KERNEL_CLASSES = (
+    ("flash", ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")),
+    ("gemm", ("gemm", "gemv", "cutlass", "xmma", "nvjet")),
+    ("optimizer", ("multi_tensor_apply",)),
+    ("embedding", ("embedding", "indexing_backward", "indexselect",
+                   "index_select", "radix", "segment", "scatter")),
+    ("norm", ("layer_norm", "gammabeta")),
+    ("softmax", ("softmax",)),
+    ("reduce", ("reduce",)),
+    ("elementwise", ("elementwise",)),
+)
+
+
+def kernel_class(name: str) -> str:
+    low = name.lower()
+    for cls, keys in KERNEL_CLASSES:
+        if any(k in low for k in keys):
+            return cls
+    return "other"
+
+
+def step_profile(label: str, step, *, grad: bool = False) -> dict:
     """Where one step's device time goes: torch.profiler's kernel records
     of one call of ``step``, summed by kernel name, against the wall time of
     an unprofiled call (the profiler's own host work would inflate it); the
-    rest is the device's idle share."""
+    rest is the device's idle share. ``grad``: run with autograd (a training
+    step) instead of under inference mode. Returns the printed record."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.inference_mode():
+    ctx = contextlib.nullcontext if grad else torch.inference_mode
+    with ctx():
         step()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -412,22 +497,35 @@ def step_profile(label: str, step) -> None:
             step()
             torch.cuda.synchronize()
     by_name: dict[str, float] = {}
+    count = 0
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            name = e.name[:60]
-            by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
+            by_name[e.name] = by_name.get(e.name, 0.0) + \
+                e.time_range.elapsed_us()
+            count += 1
     if not by_name:
         log(f"# {label} profile: device time not measured (the profiler "
             f"recorded no kernels)")
-        return
+        return {}
     busy = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    log(f"# {label} profile: " + json.dumps({
+    flash = {k: sum(v for n, v in by_name.items() if k in n)
+             for k in ("flash_fwd_kernel", "flash_dq_kernel",
+                       "flash_dkv_kernel")}
+    by_class: dict[str, float] = {}
+    top: dict[str, float] = {}
+    for name, us in by_name.items():
+        cls = kernel_class(name)
+        by_class[cls] = by_class.get(cls, 0.0) + us
+        top[name[:80]] = top.get(name[:80], 0.0) + us
+    record = {
         "wall_us": wall_us, "device_busy_us": busy,
-        "idle_share": 1.0 - busy / wall_us, "kernels": sum(
-            1 for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA),
-        "top_kernels_us": {k: v for k, v in top}}))
+        "idle_share": 1.0 - busy / wall_us, "kernels": count,
+        "flash_us": flash, "flash_share_of_busy": sum(flash.values()) / busy,
+        "by_class_us": dict(sorted(by_class.items(), key=lambda kv: -kv[1])),
+        "top_kernels_us": dict(sorted(top.items(),
+                                      key=lambda kv: -kv[1])[:15])}
+    log(f"# {label} profile: " + json.dumps(record))
+    return record
 
 
 def phase_llama(fa, failures) -> None:
@@ -466,6 +564,265 @@ def phase_llama(fa, failures) -> None:
                         f"err {err}")
 
 
+def bwd_case(fa, s, b, h, d, dtype, causal, lengths, rate, seed,
+             library: bool) -> list[dict]:
+    """One backward grid row: the forward kernel's o and lse feed the dq
+    and dk/dv kernels and their plain versions. Returns the rows (the
+    forward's too when it drops), each with errors, device times, bound
+    and, when ``library``, the library yardstick at rate 0: the forward
+    (device time) and backward (eager time, dq, dk and dv together) of
+    ``scaled_dot_product_attention`` with the boolean mask."""
+    import torch
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn((b, s, h, d), generator=gen, device=dev)
+                   .to(tdt) for _ in range(4))
+    mask_np = np.zeros((b, s), np.int32)
+    for i, n in enumerate(lengths):
+        mask_np[i, :n] = 1
+    mask = torch.from_numpy(mask_np).to(dev)
+    drop = dict(dropout_rate=rate, dropout_seed=seed - 2 ** 31)
+    o, lse = fa.flash_attention_fwd(q, k, v, mask, causal=causal, **drop)
+    delta = fa._delta(do, o)
+    args = (q, k, v, mask, lse, do, delta, causal, rate, seed - 2 ** 31)
+    head = {"s": s, "b": b, "h": h, "d": d, "dtype": dtype, "causal": causal,
+            "rate": rate, "lengths": list(lengths)}
+    lib_fwd = lib_bwd = None
+    if library:
+        # One library call each way at rate 0 on the same inputs: no
+        # library call applies the hash mask.
+        keep = mask.bool()[:, None, None, :]
+        if causal:
+            keep = keep & torch.ones((s, s), dtype=torch.bool,
+                                     device=dev).tril()
+        qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_()
+                      for x in (q, k, v))
+        with torch.no_grad():
+            lib_fwd = device_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=keep))
+        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep)
+        dot = do.transpose(1, 2)
+        # Eager: autograd's backward is not captured in a CUDA graph here.
+        lib_bwd = call_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True))
+        del out
+    rows = []
+    if rate > 0.0:
+        ref_o, ref_lse = fa.flash_attention_reference(q, k, v, mask, causal,
+                                                      **drop)
+        err, share = row_error(o, ref_o, *TOL[dtype])
+        lse_err = (lse - ref_lse).abs().max().item()
+        rows.append({"kernel": "flash_attention_fwd", **head,
+                     "max_abs_err": err, "err_over_tol": share,
+                     "lse_err": lse_err,
+                     "ok": bool(torch.isfinite(o.float()).all())
+                     and share <= 1.0 and lse_err <= TOL_LSE,
+                     "ms": device_ms(lambda: fa.flash_attention_fwd(
+                         q, k, v, mask, causal=causal, **drop)),
+                     "plain_ms": device_ms(
+                         lambda: fa.flash_attention_reference(
+                             q, k, v, mask, causal, **drop)),
+                     "library_ms": lib_fwd})
+    dq = fa.flash_attention_dq_cuda(*args)
+    dk, dv = fa.flash_attention_dkv_cuda(*args)
+    torch.cuda.synchronize()
+    pairs = {"flash_attention_dq": (
+        [(dq, fa.flash_attention_dq_reference(*args))],
+        lambda: fa.flash_attention_dq_cuda(*args),
+        lambda: fa.flash_attention_dq_reference(*args)),
+        "flash_attention_dkv": (
+        list(zip((dk, dv), fa.flash_attention_dkv_reference(*args))),
+        lambda: fa.flash_attention_dkv_cuda(*args),
+        lambda: fa.flash_attention_dkv_reference(*args))}
+    for name, (outs, kernel, plain) in pairs.items():
+        errs = [row_error(g, ref, *TOL_GRAD[dtype]) for g, ref in outs]
+        finite = all(bool(torch.isfinite(g.float()).all()) for g, _ in outs)
+        # Every batch row but a fully masked one has live gradients, so an
+        # all-zero reference would make the comparison empty.
+        ref_max = min(ref.float().abs().max().item() for _, ref in outs)
+        share = max(e[1] for e in errs)
+        del outs
+        rows.append({"kernel": name, **head,
+                     "max_abs_err": max(e[0] for e in errs),
+                     "err_over_tol": share, "ref_max_abs": ref_max,
+                     "ok": finite and share <= 1.0 and ref_max > 0.0,
+                     "ms": device_ms(kernel), "plain_ms": device_ms(plain),
+                     "library_ms": lib_bwd})
+    for r in rows:
+        r["library_rate"] = 0.0 if library else None
+    kinds = {"flash_attention_fwd": "fwd", "flash_attention_dq": "dq",
+             "flash_attention_dkv": "dkv"}
+    for r in rows:
+        r["bound_ms"], r["bound_by"] = flash_bound(mask_np, h, d, causal,
+                                                   dtype, kinds[r["kernel"]])
+    return rows
+
+
+def phase_bwd_grid(fa, failures) -> None:
+    """The backward kernels (and the forward with dropout) against their
+    plain versions over S in {160, 1024, 4096} x D in {64, 128} x {f32,
+    bf16} x {causal, full} x rate in {0, 0.1}. At S=160 the last batch row
+    is fully masked, the middle ones ragged."""
+    import torch
+
+    rng = np.random.default_rng(SEED + 7)
+    for d, h in ((64, 12), (128, 32)):
+        for s, b in ((160, 4), (1024, 2), (4096, 1)):
+            lengths = [s] + [int(n) for n in rng.integers(s // 2, s, b - 1)]
+            if s == 160:
+                lengths[-1] = 0
+            for dtype in ("float32", "bfloat16"):
+                for causal in (True, False):
+                    for rate in (0.0, 0.1):
+                        for r in bwd_case(fa, s, b, h, d, dtype, causal,
+                                          lengths, rate,
+                                          int(rng.integers(1e6)),
+                                          library=rate == 0.0):
+                            log("# bwd_grid " + json.dumps(r))
+                            if not r["ok"]:
+                                failures.append(
+                                    f"{r['kernel']} disagrees with its "
+                                    f"plain version: {r}")
+                    torch.cuda.empty_cache()
+
+
+def phase_train_rows(fa) -> dict:
+    """Each kernel's row at the training path's shape: B=16, S=1024, 12
+    heads of 64, bf16, causal, every key live, dropout 0.1. The library
+    yardstick there is taken at rate 0 on the same inputs (no library call
+    applies the hash mask)."""
+    import torch
+
+    rows = {r["kernel"]: r for r in bwd_case(
+        fa, TRAIN_SEQ, TRAIN_BATCH, 12, 64, "bfloat16", True,
+        [TRAIN_SEQ] * TRAIN_BATCH, 0.1, SEED + 11, library=True)}
+    for r in rows.values():
+        log("# train_shape " + json.dumps(r))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def run_train_cli(argv) -> list[dict]:
+    from distributeddeeplearning_tpu_torch.train import cli as train_cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = train_cli.main(argv)
+    if rc != 0:
+        raise RuntimeError(f"train CLI exited {rc}")
+    return [json.loads(line) for line in buf.getvalue().splitlines()]
+
+
+def phase_train(kernels, failures) -> dict:
+    """The training path: GPT-2 small at full width through the CLI, then a
+    device-time profile of one step of the same configuration."""
+    import torch
+
+    from distributeddeeplearning_tpu_torch.data.synthetic import (
+        SyntheticCausalTokens)
+    from distributeddeeplearning_tpu_torch.train import cli as train_cli
+    from distributeddeeplearning_tpu_torch.train import loop, steps
+
+    argv = ["--model", "gpt2_small", "--batch-size", str(TRAIN_BATCH),
+            "--seq-len", str(TRAIN_SEQ), "--attn", "flash", "--synthetic",
+            "--steps", str(TRAIN_STEPS), "--log-every", "1",
+            "--seed", str(SEED)]
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    lines = run_train_cli(argv)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = read_counts(kernels)
+    expected = {k["name"]: 12 * TRAIN_STEPS for k in kernels}
+    metrics = [x for x in lines if "step" in x]
+    summary = lines[-1].get("summary", {})
+    losses = [x["loss"] for x in metrics]
+    log(f"# gpt2_small train: CLI {cli_s:.2f} s, launches {launches}, "
+        f"expected {expected}, losses {losses}, summary "
+        f"{json.dumps(summary)}")
+    if launches != expected:
+        failures.append(f"training path launches {launches}, expected "
+                        f"{expected}")
+    if (len(losses) != TRAIN_STEPS
+            or not all(np.isfinite(x) for x in losses)
+            or abs(losses[0] - np.log(VOCAB)) > FIRST_LOSS_TOL):
+        failures.append(f"training losses {losses}: need {TRAIN_STEPS} "
+                        f"finite, the first within {FIRST_LOSS_TOL} of "
+                        f"ln {VOCAB}")
+    if not summary.get("tokens_per_sec"):
+        failures.append(f"training summary without tokens/s: {summary}")
+
+    config = train_cli.build_config(train_cli.parse_args(argv))
+    state, sched = loop.build_state(config, torch.device("cuda"))
+    train_step = steps.make_train_step(config, sched)
+    source = SyntheticCausalTokens(TRAIN_BATCH, TRAIN_SEQ, VOCAB, SEED,
+                                   "cuda")
+    batch = source.batch(0)
+    torch.cuda.reset_peak_memory_stats()
+    profile = step_profile("gpt2_small train step (bf16, flash, dropout "
+                           "0.1)", lambda: train_step(state, batch),
+                           grad=True)
+    profile["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"# gpt2_small train step peak memory "
+        f"{profile['peak_memory_gb']:.2f} GB")
+    del state
+    torch.cuda.empty_cache()
+    return {"launches": launches, "summary": summary, "profile": profile}
+
+
+def phase_flash_vs_dense_step(failures) -> None:
+    """One f32 training step of GPT-2 small at batch 4 x 1024 through
+    flash and through dense: same weights, batch and dropout seeds (the
+    hash mask drops the same attention probabilities; the residual sites
+    draw the same device generators). Loss and every gradient compared."""
+    import torch
+
+    from distributeddeeplearning_tpu_torch.models import get_model
+    from distributeddeeplearning_tpu_torch.train.losses import (
+        causal_lm_loss)
+    from distributeddeeplearning_tpu_torch.train.steps import dropout_rng
+
+    ids = torch.as_tensor(np.random.default_rng(SEED + 5).integers(
+        1, VOCAB, (DENSE_BATCH, TRAIN_SEQ)), device="cuda")
+    grads, losses = {}, {}
+    state = None
+    torch.manual_seed(SEED + 6)  # the weights, from a seed
+    for impl in ("flash", "dense"):
+        model = get_model("gpt2_small", dtype=torch.float32,
+                          attention_impl=impl).train()
+        if state is None:
+            state = model.state_dict()
+        else:
+            model.load_state_dict(state)
+        logits = model(ids, rng=dropout_rng(SEED, 0))
+        loss = causal_lm_loss(logits, ids)
+        del logits
+        loss.backward()
+        losses[impl] = loss.item()
+        grads[impl] = {n: p.grad for n, p in model.named_parameters()}
+        del model
+    top = max(g.abs().max().item() for g in grads["dense"].values())
+    worst = 0.0
+    for name, ref in grads["dense"].items():
+        scale = max(ref.abs().max().item(), 1e-4 * top)
+        worst = max(worst, (grads["flash"][name] - ref).abs().max().item()
+                    / scale)
+    loss_err = abs(losses["flash"] - losses["dense"])
+    log(f"# gpt2_small f32 train step, flash vs dense (batch "
+        f"{DENSE_BATCH} x {TRAIN_SEQ}, dropout 0.1): losses "
+        f"{json.dumps(losses)}, loss err {loss_err:.3e}, worst gradient err "
+        f"{worst:.3e} of its scale")
+    if not np.isfinite(loss_err) or loss_err > STEP_LOSS_TOL \
+            or not worst <= STEP_GRAD_TOL:
+        failures.append(f"flash vs dense training step: loss err "
+                        f"{loss_err}, gradient err {worst}")
+    del grads
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -478,22 +835,34 @@ def main() -> int:
     # Full-f32 references: no TF32 in the plain versions' products.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    kernels = [{
-        "name": "flash_attention_fwd", "module": fa, "route": "cuda",
-        "source": "distributeddeeplearning_tpu_torch/csrc/"
-                  "flash_attention_fwd.cu",
-        "replaces": "distributeddeeplearning_tpu/ops/flash_attention.py:101",
-    }]
+    csrc = "distributeddeeplearning_tpu_torch/csrc/"
+    replaces = "distributeddeeplearning_tpu/ops/flash_attention.py:"
+    kernels = [
+        {"name": "flash_attention_fwd", "counter": "launches",
+         "build": fa.SOURCE, "source": csrc + fa.SOURCE,
+         "replaces": replaces + "101"},
+        {"name": "flash_attention_dq", "counter": "dq_launches",
+         "build": fa.BWD_SOURCE, "source": csrc + fa.BWD_SOURCE,
+         "replaces": replaces + "209"},
+        {"name": "flash_attention_dkv", "counter": "dkv_launches",
+         "build": fa.BWD_SOURCE, "source": csrc + fa.BWD_SOURCE,
+         "replaces": replaces + "261"},
+    ]
+    for k in kernels:
+        k.update(module=fa, route="cuda")
     failures: list[str] = []
     scratch = ROOT / ".cache" / "chip_smoke"
     scratch.mkdir(parents=True, exist_ok=True)
     try:
         phase_card()
         phase_build(kernels)
-        # Each kernel's row at the main path's shape, by kernel name.
-        main_rows = {"flash_attention_fwd": phase_flash_grid(fa, failures)}
-        launches = phase_gpt2(kernels, failures, scratch)
+        phase_flash_grid(fa, failures)
+        phase_gpt2(kernels, failures, scratch)
         phase_llama(fa, failures)
+        phase_bwd_grid(fa, failures)
+        main_rows = phase_train_rows(fa)
+        train = phase_train(kernels, failures)
+        phase_flash_vs_dense_step(failures)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     if failures:
@@ -503,10 +872,10 @@ def main() -> int:
 
     kernel_rows = [{
         "name": k["name"], "route": k["route"], "source": k["source"],
-        "replaces": k["replaces"], "launches": launches[k["name"]],
+        "replaces": k["replaces"], "launches": train["launches"][k["name"]],
         **{key: main_rows[k["name"]][key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")},
+            "library_ms", "library_rate")},
     } for k in kernels]
     log(json.dumps({"kernels": kernel_rows}))
     log(json.dumps({"ok": True, "device": {

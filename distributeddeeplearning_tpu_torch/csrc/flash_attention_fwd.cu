@@ -3,9 +3,16 @@
 // Replaces the Pallas TPU kernel distributeddeeplearning_tpu/ops/
 // flash_attention.py:_fwd_kernel (launched by _fwd). It computes the same
 // function: online-softmax attention with a key-padding mask and an optional
-// causal triangle, writing o in q's dtype and the row logsumexp in f32. A
-// fully masked row gives o = 0 and lse = 0. In-kernel dropout is the training
-// slice's and is not here.
+// causal triangle and attention-probability dropout, writing o in q's dtype
+// and the row logsumexp in f32. A fully masked row gives o = 0 and lse = 0.
+//
+// Dropout (flash_attention.py:136-141): l accumulates the undropped p, and
+// only the P.V product sees keep ? p / (1 - rate) : 0, with keep the
+// counter-based hash of the global (batch*head, query, key) coordinates
+// (flash_common.cuh, the same function as ops/hash_dropout.py). The
+// backward kernels regenerate the same mask. Rate 0 is a separate template
+// instance with no hash in it, so the serving path runs the code it ran
+// before dropout existed.
 //
 // Layout: q, k, v are read in the models' (B, S, H, D) layout through their
 // strides (the head dim must be contiguous), which skips the (B*H, S, D)
@@ -31,16 +38,20 @@
 // state (m, l) of a row lives in the registers of its 8 lanes and its
 // reductions are three warp shuffles.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per block
-constexpr int THREADS = 128;
-constexpr int GROUP = 8;      // lanes sharing a row group
+using flash::BQ;
+using flash::Dropout;
+using flash::GROUP;
+using flash::NEG;
+using flash::THREADS;
+using flash::round_as;
+using flash::store;
+using flash::to_float;
+
 constexpr int ROWS = 4;       // query rows per thread
-constexpr float NEG = -1e30f;     // the TPU kernel's mask value
 
 // Keys per streamed tile. Shared memory holds f32 Q, K, V and P tiles: at
 // D=128 a 64-key tile takes 116 KB, so one block fits on an SM; a 32-key
@@ -55,27 +66,12 @@ struct Strides {
   long long q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h, o_b, o_s, o_h;
 };
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-// p is rounded to the storage type before the P.V product, as the TPU
-// kernel feeds p.astype(v.dtype) to the matrix unit.
-__device__ __forceinline__ float round_as(float x, float) { return x; }
-__device__ __forceinline__ float round_as(float x, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-template <typename T, int D, int BK>
+template <typename T, int D, int BK, bool DROP>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int* __restrict__ mask,
                  T* __restrict__ o, float* __restrict__ lse, int S, int H,
-                 Strides st, int causal, float scale) {
+                 Strides st, int causal, float scale, Dropout dr) {
   constexpr int QT = BQ + 1;  // padded strides keep the transposed
   constexpr int KT = BK + 1;  // tiles' stores off a single bank
   constexpr int COLS = BK / GROUP;  // key columns per thread
@@ -97,6 +93,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* kb = k + b * st.k_b + h * st.k_h;
   const T* vb = v + b * st.v_b + h * st.v_h;
   const int* mb = mask + (long long)b * S;
+  const uint32_t bh_c = DROP ? flash::bh_term(dr, b, h) : 0u;
 
   for (int e = tid; e < BQ * D; e += THREADS) {
     const int r = e / D, d = e % D;
@@ -174,8 +171,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int c = cg + GROUP * j;
         const bool ok = kvalid[c] && (!causal || k0 + c <= qi);
         const float p = ok ? expf(s[i][j] - m_new) : 0.f;
-        sum += p;  // l accumulates the unrounded p, as on the TPU
-        ps[c * QT + rg * ROWS + i] = round_as(p, T());
+        sum += p;  // l accumulates the unrounded, undropped p, as on the TPU
+        float pv = p;
+        if (DROP)
+          pv = flash::keep(dr, bh_c, qi, k0 + c) ? p * dr.inv_keep : 0.f;
+        ps[c * QT + rg * ROWS + i] = round_as(pv, T());
       }
 #pragma unroll
       for (int w = 1; w < GROUP; w <<= 1)
@@ -215,54 +215,72 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool DROP>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* mask, void* o, void* lse, const Strides& st,
                    int B, int S, int H, int causal, float scale,
-                   cudaStream_t stream) {
+                   const Dropout& dr, cudaStream_t stream) {
   constexpr int BK = block_k(D);
   const size_t smem =
       sizeof(float) * (D * (BQ + 1) + D * (BK + 1) + BK * D + BK * (BQ + 1)) +
       sizeof(int) * BK;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_fwd_kernel<T, D, BK, DROP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((S + BQ - 1) / BQ, B * H);
-  flash_fwd_kernel<T, D, BK><<<grid, THREADS, smem, stream>>>(
+  flash_fwd_kernel<T, D, BK, DROP><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(mask),
-      static_cast<T*>(o), static_cast<float*>(lse), S, H, st, causal, scale);
+      static_cast<T*>(o), static_cast<float*>(lse), S, H, st, causal, scale,
+      dr);
   return cudaGetLastError();
+}
+
+template <bool DROP>
+int dispatch(const void* q, const void* k, const void* v, const void* mask,
+             void* o, void* lse, const Strides& st, int B, int S, int H,
+             int D, int dtype, int causal, float scale, const Dropout& dr,
+             cudaStream_t cs) {
+  if (dtype == 0 && D == 64)
+    return launch<float, 64, DROP>(q, k, v, mask, o, lse, st, B, S, H,
+                                   causal, scale, dr, cs);
+  if (dtype == 0 && D == 128)
+    return launch<float, 128, DROP>(q, k, v, mask, o, lse, st, B, S, H,
+                                    causal, scale, dr, cs);
+  if (dtype == 1 && D == 64)
+    return launch<__nv_bfloat16, 64, DROP>(q, k, v, mask, o, lse, st, B, S,
+                                           H, causal, scale, dr, cs);
+  if (dtype == 1 && D == 128)
+    return launch<__nv_bfloat16, 128, DROP>(q, k, v, mask, o, lse, st, B, S,
+                                            H, causal, scale, dr, cs);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. strides: 12 int64 element strides on
-// the host, (batch, seq, head) for q, k, v and o in turn. Returns the CUDA
-// error code of the launch (0 on success); the wrapper validates shapes.
+// the host, (batch, seq, head) for q, k, v and o in turn. Dropout is on when
+// rate > 0: inv_keep = 1 / (1 - rate) rounded to f32, seed the int32 seed's
+// bits, (b_start, h_start, h_total) the global (batch, head) placement.
+// Returns the CUDA error code of the launch (0 on success); the wrapper
+// validates shapes.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, const void* mask, void* o,
                                    void* lse, const void* strides, int B,
                                    int S, int H, int D, int dtype, int causal,
-                                   float scale, void* stream) {
+                                   float scale, float rate, float inv_keep,
+                                   unsigned int seed, int b_start,
+                                   int h_start, int h_total, void* stream) {
   const long long* s = static_cast<const long long*>(strides);
   const Strides st{s[0], s[1], s[2], s[3], s[4],  s[5],
                    s[6], s[7], s[8], s[9], s[10], s[11]};
+  const Dropout dr{rate, inv_keep, seed, b_start, h_start, h_total};
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D == 64)
-    return launch<float, 64>(q, k, v, mask, o, lse, st, B, S, H, causal,
-                             scale, cs);
-  if (dtype == 0 && D == 128)
-    return launch<float, 128>(q, k, v, mask, o, lse, st, B, S, H, causal,
-                              scale, cs);
-  if (dtype == 1 && D == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, mask, o, lse, st, B, S, H,
-                                     causal, scale, cs);
-  if (dtype == 1 && D == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, mask, o, lse, st, B, S, H,
-                                      causal, scale, cs);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return rate > 0.f ? dispatch<true>(q, k, v, mask, o, lse, st, B, S, H, D,
+                                     dtype, causal, scale, dr, cs)
+                    : dispatch<false>(q, k, v, mask, o, lse, st, B, S, H, D,
+                                      dtype, causal, scale, dr, cs);
 }
 
 extern "C" const char* flash_attention_error_string(int code) {

@@ -1,0 +1,71 @@
+// Pieces shared by the flash-attention kernels (flash_attention_fwd.cu,
+// flash_attention_bwd.cu): element conversions, the rounding points of the
+// TPU kernels, and the counter-based dropout hash.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace flash {
+
+constexpr int BQ = 64;         // query rows per block (fwd, dq)
+constexpr int THREADS = 128;
+constexpr int GROUP = 8;       // lanes sharing a row group
+constexpr int ROW_GROUPS = THREADS / GROUP;
+constexpr float NEG = -1e30f;  // the TPU kernels' masked-score value
+
+// (batch, seq, head) element strides of one (B, S, H, D) operand; the head
+// dim is contiguous.
+struct Strides3 {
+  long long b, s, h;
+};
+
+// Attention-probability dropout: rate, 1 / (1 - rate) rounded to f32 as the
+// TPU kernels multiply by it, the seed's bits as uint32, and the offsets
+// that place this call's (batch, head) range in global coordinates.
+struct Dropout {
+  float rate, inv_keep;
+  uint32_t seed;
+  int b_start, h_start, h_total;
+};
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+// x rounded to the storage type and back: the TPU kernels cast p, p_drop and
+// ds to the operands' dtype before feeding them to the matrix unit.
+__device__ __forceinline__ float round_as(float x, float) { return x; }
+__device__ __forceinline__ float round_as(float x, __nv_bfloat16) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// The global batch*head coordinate of grid row (b, h) of a call with H
+// local heads, premultiplied by the hash's batch*head constant.
+__device__ __forceinline__ uint32_t bh_term(const Dropout& dr, int b, int h) {
+  const uint32_t bh = static_cast<uint32_t>((dr.b_start + b) * dr.h_total +
+                                            dr.h_start + h);
+  return bh * 0xC2B2AE35u;
+}
+
+// keep(bh, row, col): ops/hash_dropout.py's keep_mask, bit for bit. The
+// murmur3 finalizer over a linear combine of the global coordinates; the
+// uniform is float32(h) * 2^-32, kept iff >= float32(rate).
+__device__ __forceinline__ bool keep(const Dropout& dr, uint32_t bh_c,
+                                     uint32_t row, uint32_t col) {
+  uint32_t h = (row * 0x9E3779B9u) ^ (col * 0x85EBCA6Bu) ^ bh_c;
+  h ^= dr.seed;
+  h ^= h >> 16;
+  h *= 0x7FEB352Du;
+  h ^= h >> 15;
+  h *= 0x846CA68Bu;
+  h ^= h >> 16;
+  return __uint2float_rn(h) * 0x1p-32f >= dr.rate;
+}
+
+}  // namespace flash

@@ -7,7 +7,11 @@ f32 logits. Module and parameter names follow the flax tree, so
 
 Two modes: the full sequence (``attention_impl`` dense or flash, causal over
 a key-padding mask) and dense KV-cache decoding (``cache=``, see
-models/decode_cache.py). Activations run in the parameters' dtype.
+models/decode_cache.py). Parameters are float32 masters; activations run in
+the compute ``dtype`` (models/layers.py), as flax's ``param_dtype=float32,
+dtype=...``. In training mode (``model.train()``) the embedding, both
+residual branches and the attention probabilities take dropout at
+``dropout_rate``, with randomness drawn from ``rng=``.
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ from torch import nn
 
 from distributeddeeplearning_tpu_torch.models.decode_cache import (
     KVCache, live_mask)
+from distributeddeeplearning_tpu_torch.models.layers import (
+    Dense, LayerNorm, dropout, training_rng)
 from distributeddeeplearning_tpu_torch.ops.attention import (
     multihead_attention)
 
@@ -50,13 +56,13 @@ class CausalSelfAttention(nn.Module):
         super().__init__()
         self.cfg = cfg
         h = cfg.hidden_size
-        self.query = nn.Linear(h, h, dtype=dtype)
-        self.key = nn.Linear(h, h, dtype=dtype)
-        self.value = nn.Linear(h, h, dtype=dtype)
-        self.output = nn.Linear(h, h, dtype=dtype)
+        self.query = Dense(h, h, dtype)
+        self.key = Dense(h, h, dtype)
+        self.value = Dense(h, h, dtype)
+        self.output = Dense(h, h, dtype)
 
     def forward(self, x, pad_mask, *, cache: Optional[KVCache] = None,
-                layer: int = 0):
+                layer: int = 0, rng: Optional[torch.Generator] = None):
         cfg = self.cfg
         b, s, _ = x.shape
         shape = (b, s, cfg.num_heads, cfg.head_dim)
@@ -79,7 +85,7 @@ class CausalSelfAttention(nn.Module):
             out = multihead_attention(
                 q, k, v, pad_mask, impl=cfg.attention_impl, causal=True,
                 dtype=x.dtype, dropout_rate=cfg.dropout_rate,
-                training=self.training)
+                dropout_rng=rng, training=rng is not None)
         return self.output(out)
 
 
@@ -89,35 +95,37 @@ class DecoderBlock(nn.Module):
     def __init__(self, cfg: GptConfig, dtype: torch.dtype):
         super().__init__()
         h = cfg.hidden_size
-        self.ln1 = nn.LayerNorm(h, eps=cfg.layer_norm_eps, dtype=dtype)
+        self.rate = cfg.dropout_rate
+        self.ln1 = LayerNorm(h, cfg.layer_norm_eps, dtype)
         self.attention = CausalSelfAttention(cfg, dtype)
-        self.ln2 = nn.LayerNorm(h, eps=cfg.layer_norm_eps, dtype=dtype)
-        self.mlp_in = nn.Linear(h, cfg.intermediate_size, dtype=dtype)
-        self.mlp_out = nn.Linear(cfg.intermediate_size, h, dtype=dtype)
+        self.ln2 = LayerNorm(h, cfg.layer_norm_eps, dtype)
+        self.mlp_in = Dense(h, cfg.intermediate_size, dtype)
+        self.mlp_out = Dense(cfg.intermediate_size, h, dtype)
 
     def forward(self, x, pad_mask, *, cache: Optional[KVCache] = None,
-                layer: int = 0):
-        x = x + self.attention(self.ln1(x), pad_mask, cache=cache,
-                               layer=layer)
+                layer: int = 0, rng: Optional[torch.Generator] = None):
+        h = self.attention(self.ln1(x), pad_mask, cache=cache, layer=layer,
+                           rng=rng)
+        x = x + dropout(h, self.rate, rng)
         # GPT-2 uses the tanh approximation.
         h = F.gelu(self.mlp_in(self.ln2(x)), approximate="tanh")
-        return x + self.mlp_out(h)
+        return x + dropout(self.mlp_out(h), self.rate, rng)
 
 
 class GptLM(nn.Module):
-    """Decoder-only LM; returns (B, S, vocab) f32 logits (tied head)."""
+    """Decoder-only LM; returns (B, S, vocab) f32 logits (tied head).
+    ``dtype`` is the compute dtype; parameters are float32."""
 
     def __init__(self, cfg: GptConfig, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.cfg = cfg
-        self.wte = nn.Parameter(torch.empty(cfg.vocab_size, cfg.hidden_size,
-                                            dtype=dtype))
+        self.compute_dtype = dtype
+        self.wte = nn.Parameter(torch.empty(cfg.vocab_size, cfg.hidden_size))
         self.wpe = nn.Parameter(torch.empty(cfg.max_position,
-                                            cfg.hidden_size, dtype=dtype))
+                                            cfg.hidden_size))
         self.layers = nn.ModuleList(
             DecoderBlock(cfg, dtype) for _ in range(cfg.num_layers))
-        self.ln_f = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps,
-                                 dtype=dtype)
+        self.ln_f = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, dtype)
         self.reset_parameters()
 
     def reset_parameters(self) -> None:
@@ -126,7 +134,7 @@ class GptLM(nn.Module):
         nn.init.normal_(self.wte, std=0.02)
         nn.init.normal_(self.wpe, std=0.01)
         for m in self.modules():
-            if isinstance(m, nn.Linear):
+            if isinstance(m, Dense):
                 nn.init.normal_(m.weight, std=0.02)
                 nn.init.zeros_(m.bias)
 
@@ -135,11 +143,15 @@ class GptLM(nn.Module):
         return KVCache.zeros(
             cfg.num_layers,
             (batch, cfg.max_position, cfg.num_heads, cfg.head_dim),
-            dtype=self.wte.dtype, device=self.wte.device)
+            dtype=self.compute_dtype, device=self.wte.device)
 
     def forward(self, input_ids, attention_mask=None, *,
-                cache: Optional[KVCache] = None):
+                cache: Optional[KVCache] = None,
+                rng: Optional[torch.Generator] = None):
+        """``rng``: the CPU generator the dropout sites draw from, required
+        in training mode with a positive ``dropout_rate``."""
         cfg = self.cfg
+        rng = training_rng(self, cfg.dropout_rate, rng)
         b, s = input_ids.shape
         start = cache.index if cache is not None else 0
         if start + s > cfg.max_position:
@@ -150,13 +162,16 @@ class GptLM(nn.Module):
         pad_mask = (None if attention_mask is None
                     else attention_mask.bool())
         pos = torch.arange(start, start + s, device=input_ids.device)
-        x = F.embedding(input_ids, self.wte) + F.embedding(pos, self.wpe)
+        # Summed in f32, then cast, as the JAX model does.
+        x = (F.embedding(input_ids, self.wte)
+             + F.embedding(pos, self.wpe)).to(self.compute_dtype)
+        x = dropout(x, cfg.dropout_rate, rng)
         for i, block in enumerate(self.layers):
-            x = block(x, pad_mask, cache=cache, layer=i)
+            x = block(x, pad_mask, cache=cache, layer=i, rng=rng)
         if cache is not None:
             cache.advance(s)
         x = self.ln_f(x)
-        return (x @ self.wte.t()).float()
+        return (x @ self.wte.to(self.compute_dtype).t()).float()
 
 
 def _fit_positions(cfg: GptConfig, seq_len: Optional[int]) -> GptConfig:

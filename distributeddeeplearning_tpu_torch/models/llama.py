@@ -6,8 +6,12 @@ biases, untied LM head, f32 logits. Module and parameter names follow the
 flax tree (``utils/weights.py``).
 
 Full-sequence mode repeats each KV head over its query group for the shared
-attention impls; decode mode caches K/V at kv-head width (the GQA saving)
-and attends with a grouped einsum.
+attention impls (outside the flash kernels, so autograd sums each group's
+K/V gradients); decode mode caches K/V at kv-head width (the GQA saving)
+and attends with a grouped einsum. Parameters are float32 masters and
+activations run in the compute ``dtype`` (models/layers.py). In training
+mode the residual branches and attention probabilities take dropout at
+``dropout_rate`` (0 by default, the Llama recipe), drawn from ``rng=``.
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ from torch import nn
 
 from distributeddeeplearning_tpu_torch.models.decode_cache import (
     KVCache, live_mask)
+from distributeddeeplearning_tpu_torch.models.layers import (
+    Dense, dropout, training_rng)
 from distributeddeeplearning_tpu_torch.ops.attention import (
     multihead_attention)
 
@@ -48,12 +54,12 @@ class LlamaConfig:
 
 class RMSNorm(nn.Module):
     """flax ``nn.RMSNorm``: f32 statistics, x * (rsqrt(mean(x^2) + eps) *
-    scale), cast back to x's dtype."""
+    scale) over a float32 scale, cast back to x's (the compute) dtype."""
 
-    def __init__(self, dim: int, eps: float, dtype: torch.dtype):
+    def __init__(self, dim: int, eps: float):
         super().__init__()
         self.eps = eps
-        self.weight = nn.Parameter(torch.ones(dim, dtype=dtype))
+        self.weight = nn.Parameter(torch.ones(dim))
 
     def forward(self, x):
         xf = x.float()
@@ -84,15 +90,13 @@ class LlamaAttention(nn.Module):
         super().__init__()
         self.cfg = cfg
         h, d = cfg.hidden_size, cfg.head_dim
-        self.q_proj = nn.Linear(h, cfg.num_heads * d, bias=False, dtype=dtype)
-        self.k_proj = nn.Linear(h, cfg.num_kv_heads * d, bias=False,
-                                dtype=dtype)
-        self.v_proj = nn.Linear(h, cfg.num_kv_heads * d, bias=False,
-                                dtype=dtype)
-        self.o_proj = nn.Linear(cfg.num_heads * d, h, bias=False, dtype=dtype)
+        self.q_proj = Dense(h, cfg.num_heads * d, dtype, bias=False)
+        self.k_proj = Dense(h, cfg.num_kv_heads * d, dtype, bias=False)
+        self.v_proj = Dense(h, cfg.num_kv_heads * d, dtype, bias=False)
+        self.o_proj = Dense(cfg.num_heads * d, h, dtype, bias=False)
 
     def forward(self, x, pad_mask, *, cache: Optional[KVCache] = None,
-                layer: int = 0):
+                layer: int = 0, rng: Optional[torch.Generator] = None):
         cfg = self.cfg
         b, s, _ = x.shape
         d, kvh = cfg.head_dim, cfg.num_kv_heads
@@ -124,7 +128,7 @@ class LlamaAttention(nn.Module):
             out = multihead_attention(
                 q, k, v, pad_mask, impl=cfg.attention_impl, causal=True,
                 dtype=x.dtype, dropout_rate=cfg.dropout_rate,
-                training=self.training)
+                dropout_rng=rng, training=rng is not None)
         return self.o_proj(out)
 
 
@@ -134,34 +138,39 @@ class LlamaBlock(nn.Module):
     def __init__(self, cfg: LlamaConfig, dtype: torch.dtype):
         super().__init__()
         h, f = cfg.hidden_size, cfg.intermediate_size
-        self.attention_norm = RMSNorm(h, cfg.rms_eps, dtype)
+        self.rate = cfg.dropout_rate
+        self.attention_norm = RMSNorm(h, cfg.rms_eps)
         self.attention = LlamaAttention(cfg, dtype)
-        self.mlp_norm = RMSNorm(h, cfg.rms_eps, dtype)
-        self.gate_proj = nn.Linear(h, f, bias=False, dtype=dtype)
-        self.up_proj = nn.Linear(h, f, bias=False, dtype=dtype)
-        self.down_proj = nn.Linear(f, h, bias=False, dtype=dtype)
+        self.mlp_norm = RMSNorm(h, cfg.rms_eps)
+        self.gate_proj = Dense(h, f, dtype, bias=False)
+        self.up_proj = Dense(h, f, dtype, bias=False)
+        self.down_proj = Dense(f, h, dtype, bias=False)
 
     def forward(self, x, pad_mask, *, cache: Optional[KVCache] = None,
-                layer: int = 0):
-        x = x + self.attention(self.attention_norm(x), pad_mask, cache=cache,
-                               layer=layer)
+                layer: int = 0, rng: Optional[torch.Generator] = None):
+        h = self.attention(self.attention_norm(x), pad_mask, cache=cache,
+                           layer=layer, rng=rng)
+        x = x + dropout(h, self.rate, rng)
         h = self.mlp_norm(x)
-        return x + self.down_proj(F.silu(self.gate_proj(h)) * self.up_proj(h))
+        h = self.down_proj(F.silu(self.gate_proj(h)) * self.up_proj(h))
+        return x + dropout(h, self.rate, rng)
 
 
 class LlamaLM(nn.Module):
-    """Decoder-only LM; returns (B, S, vocab) f32 logits (untied head)."""
+    """Decoder-only LM; returns (B, S, vocab) f32 logits (untied head).
+    ``dtype`` is the compute dtype; parameters are float32."""
 
     def __init__(self, cfg: LlamaConfig, dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.cfg = cfg
+        self.compute_dtype = dtype
         self.embed_tokens = nn.Parameter(
-            torch.empty(cfg.vocab_size, cfg.hidden_size, dtype=dtype))
+            torch.empty(cfg.vocab_size, cfg.hidden_size))
         self.layers = nn.ModuleList(
             LlamaBlock(cfg, dtype) for _ in range(cfg.num_layers))
-        self.final_norm = RMSNorm(cfg.hidden_size, cfg.rms_eps, dtype)
-        self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False,
-                                 dtype=dtype)
+        self.final_norm = RMSNorm(cfg.hidden_size, cfg.rms_eps)
+        self.lm_head = Dense(cfg.hidden_size, cfg.vocab_size, dtype,
+                             bias=False)
         self.reset_parameters()
 
     def reset_parameters(self) -> None:
@@ -169,7 +178,7 @@ class LlamaLM(nn.Module):
         unit norm scales."""
         nn.init.normal_(self.embed_tokens, std=0.02)
         for m in self.modules():
-            if isinstance(m, nn.Linear):
+            if isinstance(m, Dense):
                 nn.init.normal_(m.weight, std=0.02)
 
     def init_cache(self, batch: int) -> KVCache:
@@ -177,15 +186,19 @@ class LlamaLM(nn.Module):
         return KVCache.zeros(
             cfg.num_layers,
             (batch, cfg.decode_cache_len, cfg.num_kv_heads, cfg.head_dim),
-            dtype=self.embed_tokens.dtype, device=self.embed_tokens.device)
+            dtype=self.compute_dtype, device=self.embed_tokens.device)
 
     def forward(self, input_ids, attention_mask=None, *,
-                cache: Optional[KVCache] = None):
+                cache: Optional[KVCache] = None,
+                rng: Optional[torch.Generator] = None):
+        """``rng``: the CPU generator the dropout sites draw from, required
+        in training mode with a positive ``dropout_rate``."""
+        rng = training_rng(self, self.cfg.dropout_rate, rng)
         pad_mask = (None if attention_mask is None
                     else attention_mask.bool())
-        x = F.embedding(input_ids, self.embed_tokens)
+        x = F.embedding(input_ids, self.embed_tokens).to(self.compute_dtype)
         for i, block in enumerate(self.layers):
-            x = block(x, pad_mask, cache=cache, layer=i)
+            x = block(x, pad_mask, cache=cache, layer=i, rng=rng)
         if cache is not None:
             cache.advance(input_ids.shape[1])
         return self.lm_head(self.final_norm(x)).float()

@@ -3,8 +3,9 @@ with ``ctypes``.
 
 Each ``csrc/*.cu`` file exposes a plain C interface, so it compiles in
 seconds without PyTorch's headers. The shared library lands in the git-ignored
-``.cache/torch_kernels/`` of the checkout, keyed by a hash of the source and
-the flags, so an edited source rebuilds and an unchanged one loads as is.
+``.cache/torch_kernels/`` of the checkout, keyed by a hash of the source, the
+shared ``csrc/*.cuh`` headers and the flags, so an edited source or header
+rebuilds and an unchanged one loads as is.
 Nothing is built when a module is imported; a failed build raises. The port
 runs from a checkout: the sources are read from, and built into, the tree
 that holds this package, and an installed copy carries no ``csrc/*.cu``.
@@ -38,8 +39,11 @@ def _nvcc() -> str:
 def library_path(source: str) -> Path:
     """Where the build of ``csrc/<source>`` goes."""
     src = CSRC / source
-    key = hashlib.sha256(src.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    key = digest.hexdigest()[:16]
     return CACHE / f"{src.stem}-{key}.so"
 
 

@@ -1,0 +1,3 @@
+"""One-card training of the causal LMs: losses, optimizers, train state,
+the train step, checkpoints and the loop (``python -m
+distributeddeeplearning_tpu_torch.train``)."""

@@ -1,0 +1,118 @@
+"""Training CLI of the PyTorch port: causal-LM training on one card.
+
+    python -m distributeddeeplearning_tpu_torch.train --model gpt2_small \
+        --batch-size 16 --seq-len 1024 --attn flash --synthetic --steps 100
+
+The counterpart of the root ``train.py`` for the causal LMs, with its flags
+where they apply. Data is synthetic token ids made on the device; weights
+start random from ``--seed``. Prints one JSON metric line per log step and a
+final ``{"summary": ...}`` line. Runs on the GPU unless ``--device cpu`` is
+given. Flags of later slices (data parallelism, accumulation, mixed
+precision with loss scaling, fused ResNet kernels, model parallelism, ZeRO)
+raise instead of being ignored.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import sys
+
+from distributeddeeplearning_tpu_torch.config import TrainConfig
+
+# Flags of train.py that this slice does not carry, and the slice that
+# brings each: (flag, value that is a no-op, later slice).
+_LATER = (
+    ("dp", 1, "data parallelism over NCCL with the bucket plan"),
+    ("accum", 1, "gradient accumulation, with data parallelism"),
+    ("tp", 1, "tensor parallelism"),
+    ("sp", 1, "sequence parallelism (ring/zigzag attention)"),
+    ("pp", 1, "pipeline parallelism"),
+    ("precision", None, "mixed precision with dynamic loss scaling"),
+    ("optimizer_sharding", None, "ZeRO optimizer sharding"),
+    ("fused_bn", False, "the ResNet slice's fused kernels"),
+    ("fused_block", False, "the ResNet slice's fused kernels"),
+    ("fused_conv3", False, "the ResNet slice's fused kernels"),
+    ("data_dir", None, "real token data"),
+)
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(
+        description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
+    p.add_argument("--model", default="gpt2_small",
+                   help="registry name (gpt2_small, llama_tiny, ...)")
+    p.add_argument("--batch-size", type=int, default=None,
+                   help="global batch (examples per step)")
+    p.add_argument("--steps", type=int, required=True)
+    p.add_argument("--seq-len", type=int, default=None)
+    p.add_argument("--attn", default=None, choices=["dense", "flash"],
+                   help="attention impl: dense, or the flash kernels")
+    p.add_argument("--optimizer", default=None,
+                   choices=["sgd", "lars", "adamw", "lamb"])
+    p.add_argument("--lr", type=float, default=None,
+                   help="base learning rate at the reference batch (256)")
+    p.add_argument("--dtype", default=None, choices=["bfloat16", "float32"],
+                   help="compute dtype; parameters stay float32")
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--log-every", type=int, default=None)
+    p.add_argument("--warmup-steps", type=int, default=2,
+                   help="steps excluded from throughput timing")
+    p.add_argument("--synthetic", action="store_true",
+                   help="synthetic token ids (the only data this slice "
+                        "has)")
+    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--checkpoint-every", type=int, default=None)
+    p.add_argument("--no-resume", action="store_true",
+                   help="ignore existing checkpoints")
+    p.add_argument("--device", default=None, help="cuda (default) or cpu")
+    for flag, default, _ in _LATER:
+        name = "--" + flag.replace("_", "-")
+        if isinstance(default, bool):
+            p.add_argument(name, action="store_true",
+                           help=argparse.SUPPRESS)
+        else:
+            p.add_argument(name, type=int if default == 1 else str,
+                           default=default, help=argparse.SUPPRESS)
+    return p.parse_args(argv)
+
+
+def build_config(args: argparse.Namespace) -> TrainConfig:
+    for flag, default, later in _LATER:
+        value = getattr(args, flag)
+        if value != default:
+            raise SystemExit(f"--{flag.replace('_', '-')} {value}: not "
+                             f"carried by the port yet; it comes with "
+                             f"{later}")
+    if args.steps <= 0:
+        raise SystemExit(f"--steps must be positive (got {args.steps})")
+    cfg = TrainConfig(model=args.model, total_steps=args.steps)
+    updates = {k: v for k, v in (
+        ("global_batch_size", args.batch_size), ("dtype", args.dtype),
+        ("seed", args.seed), ("log_every", args.log_every),
+        ("checkpoint_dir", args.checkpoint_dir),
+        ("checkpoint_every_steps", args.checkpoint_every),
+        ("attention_impl", args.attn)) if v is not None}
+    if args.no_resume:
+        updates["resume"] = False
+    if args.seq_len:
+        updates["data"] = dataclasses.replace(cfg.data, seq_len=args.seq_len)
+    opt = {k: v for k, v in (("name", args.optimizer),
+                             ("learning_rate", args.lr)) if v is not None}
+    if opt:
+        updates["optimizer"] = dataclasses.replace(cfg.optimizer, **opt)
+    return cfg.replace(**updates)
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    config = build_config(args)
+    from distributeddeeplearning_tpu_torch.train import loop
+
+    loop.run(config, device=args.device, warmup_steps=args.warmup_steps,
+             emit=lambda line: print(line, flush=True))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -63,14 +63,23 @@ def params_from_flax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     return state
 
 
+def flax_leaf(key: str, ndim: int) -> str:
+    """The flax leaf name of ``state_dict`` entry ``key`` of rank ``ndim``:
+    a submodule's 2-D ``weight`` is a Dense ``kernel``, its 1-D one a norm
+    ``scale``; every other leaf keeps its name."""
+    *mods, leaf = key.split(".")
+    if mods and leaf == "weight":
+        return "kernel" if ndim == 2 else "scale"
+    return leaf
+
+
 def params_to_flax(state_dict: Mapping[str, torch.Tensor]
                    ) -> dict[str, np.ndarray]:
     """The inverse of :func:`params_from_flax`: a flat ``/``-joined flax
     params dict of float32 numpy arrays, ready for ``np.savez``."""
     flat = {}
     for key, tensor in state_dict.items():
-        parts = key.split(".")
-        *mods, leaf = parts
+        mods = key.split(".")[:-1]
         names, i = [], 0
         while i < len(mods):
             if mods[i] == "layers" and i + 1 < len(mods):
@@ -80,9 +89,8 @@ def params_to_flax(state_dict: Mapping[str, torch.Tensor]
                 names.append(mods[i])
                 i += 1
         arr = tensor.detach().float().cpu().numpy()
-        if mods and leaf == "weight":
-            leaf = "kernel" if arr.ndim == 2 else "scale"
-            if arr.ndim == 2:
-                arr = arr.T
+        leaf = flax_leaf(key, arr.ndim)
+        if leaf == "kernel":
+            arr = arr.T
         flat["/".join(names + [leaf])] = np.ascontiguousarray(arr)
     return flat

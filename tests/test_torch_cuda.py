@@ -1,4 +1,6 @@
-"""The port's CUDA kernels on the card, against their plain versions.
+"""The port's CUDA kernels on the card, against their plain versions:
+the flash forward (with and without dropout), the dq and dk/dv backward
+kernels, and a tiny GPT's training step on the card against the CPU.
 
 Every test here needs an NVIDIA GPU and skips without one. The file imports
 nothing of JAX, so it runs on a machine that has only PyTorch:
@@ -13,6 +15,7 @@ import torch
 
 from distributeddeeplearning_tpu_torch.models import gpt as tgpt
 from distributeddeeplearning_tpu_torch.ops import flash_attention as tfa
+from distributeddeeplearning_tpu_torch.train.losses import causal_lm_loss
 
 # Kernel vs plain version on the card. f32: the same f32 arithmetic summed
 # in another order. bf16: o is rounded to bf16 at the end.
@@ -90,3 +93,159 @@ def test_flash_model_on_card_matches_cpu(cuda_device):
         out = card(ids.to(cuda_device), attention_mask=mask.to(cuda_device))
     assert tfa.launches == before + 2  # one per layer
     torch.testing.assert_close(out.cpu(), ref, **F32)
+
+
+def _rows_close(out, ref, rtol, atol=0.0):
+    """|out - ref| <= atol + rtol * max|ref| of each row (the last dim: one
+    query or key position of one head). The kernels and the plain versions
+    round p and ds to bf16 from f32 values summed in other orders, so a bf16
+    error follows the row's scale."""
+    out, ref = out.float(), ref.float()
+    limit = atol + rtol * ref.abs().amax(dim=-1, keepdim=True)
+    bad = (out - ref).abs() > limit
+    assert not bad.any(), (f"{int(bad.sum())} elements over the row limit; "
+                           f"max err {(out - ref).abs().max().item():.3e}")
+
+
+# Backward kernels vs plain version, per row: f32 differs in summation
+# order; bf16 in where ds and p_drop round (up to 2^-5 of the row's max).
+# The absolute part covers rows that are zero in exact arithmetic (at S=1,
+# or a causal first query, ds = p * (dp - delta) = 0): both sides hold f32
+# rounding noise there, measured up to 1.5e-6 with unit-variance inputs.
+GRAD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2 ** -5, 1e-5)}
+
+
+def _inputs(device, dtype, b, s, h, d, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal((b, s, h, d)).astype(
+        np.float32)).to(device, dtype) for _ in range(4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [1, 63, 65, 200])
+def test_backward_kernels_match_plain(cuda_device, rate, dtype, d, causal, s):
+    """dq and dk/dv kernels against the plain backward on the forward
+    kernel's o and lse, with a ragged and a fully masked batch row."""
+    q, k, v, do = _inputs(cuda_device, dtype, 3, s, 4, d, s * d)
+    mask = _mask(s, (s, max(s // 2, 1), 0), cuda_device)
+    seed = -20260101
+    o, lse = tfa.flash_attention_fwd(q, k, v, mask, causal=causal,
+                                     dropout_rate=rate, dropout_seed=seed)
+    before = (tfa.dq_launches, tfa.dkv_launches)
+    grads = tfa.flash_attention_bwd(q, k, v, mask, o, lse, do, causal=causal,
+                                    dropout_rate=rate, dropout_seed=seed)
+    torch.cuda.synchronize()
+    assert (tfa.dq_launches, tfa.dkv_launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    refs = tfa.flash_attention_bwd_reference(q, k, v, mask, o, lse, do,
+                                             causal, rate, seed)
+    for g, ref in zip(grads, refs):
+        assert g.dtype == dtype and g.shape == q.shape
+        _rows_close(g, ref, *GRAD_TOL[dtype])
+        assert not g[2].float().any()  # the fully masked batch row
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_forward_dropout_matches_plain(cuda_device, dtype, d, causal):
+    """The forward kernel with rate 0.1 drops exactly the plain version's
+    probabilities (the hash mask in CUDA against ops/hash_dropout.py)."""
+    q, k, v, _ = _inputs(cuda_device, dtype, 2, 150, 3, d, d)
+    mask = _mask(150, (150, 77), cuda_device)
+    for seed in (0, -1, 2 ** 31 - 1):
+        o, lse = tfa.flash_attention_fwd(q, k, v, mask, causal=causal,
+                                         dropout_rate=0.1, dropout_seed=seed)
+        ref_o, ref_lse = tfa.flash_attention_reference(
+            q, k, v, mask, causal, 0.1, seed)
+        tol = F32 if dtype == torch.float32 else BF16
+        torch.testing.assert_close(o.float(), ref_o.float(), **tol)
+        torch.testing.assert_close(lse, ref_lse, **F32)
+        undropped, _ = tfa.flash_attention_fwd(q, k, v, mask, causal=causal)
+        assert (o.float() - undropped.float()).abs().max() > 1e-3
+
+
+@pytest.mark.cuda
+def test_backward_kernels_read_strided_views(cuda_device):
+    """q/k/v and do as head-split views of fused projections: read through
+    their strides; the gradients come back contiguous."""
+    rng = np.random.default_rng(1)
+    qkv, go = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(cuda_device)
+        for shape in ((2, 96, 3, 4, 64), (2, 96, 2, 4, 64)))
+    q, k, v = qkv.unbind(dim=2)
+    do = go[:, :, 1]
+    assert not q.is_contiguous() and not do.is_contiguous()
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=True, dropout_rate=0.2,
+                                     dropout_seed=5)
+    mask = torch.ones((2, 96), dtype=torch.int32, device=cuda_device)
+    grads = tfa.flash_attention_bwd(q, k, v, mask, o, lse, do, causal=True,
+                                    dropout_rate=0.2, dropout_seed=5)
+    refs = tfa.flash_attention_bwd_reference(q, k, v, mask, o, lse, do,
+                                             True, 0.2, 5)
+    for g, ref in zip(grads, refs):
+        assert g.is_contiguous()
+        _rows_close(g, ref, *GRAD_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("change,exc", [
+    (lambda x: x.half(), TypeError),
+    (lambda x: x[..., :32], ValueError),           # D not in {64, 128}
+])
+def test_backward_wrapper_raises_rather_than_falling_back(cuda_device,
+                                                          change, exc):
+    q, k, v, do = (change(x) for x in _inputs(cuda_device, torch.float32,
+                                              1, 16, 2, 64, 0))
+    mask = torch.ones((1, 16), dtype=torch.int32, device=cuda_device)
+    lse = torch.zeros((1, 2, 16), device=cuda_device)
+    before = (tfa.dq_launches, tfa.dkv_launches)
+    with pytest.raises(exc):
+        tfa.flash_attention_bwd(q, k, v, mask, q, lse, do, causal=True)
+    with pytest.raises(exc):
+        tfa.flash_attention_fwd(q, k, v, mask, causal=True)
+    assert (tfa.dq_launches, tfa.dkv_launches) == before
+
+
+@pytest.mark.cuda
+def test_training_step_on_card_matches_cpu(cuda_device, monkeypatch):
+    """One forward and backward of a GPT at a kernel head dim (64), with
+    attention dropout 0.1, through the three kernels on the card against
+    the plain versions on the CPU: the same CPU generator gives both the same
+    attention seeds, and the hash mask the same dropped probabilities. The
+    residual and embedding sites draw torch's device RNG, which differs
+    between the CPU and the card, so they are turned off here."""
+    monkeypatch.setattr(tgpt, "dropout", lambda x, rate, rng: x)
+    torch.manual_seed(0)
+    cpu = tgpt.tiny_gpt(vocab_size=97, hidden_size=128, num_heads=2,
+                        attention_impl="flash", dropout_rate=0.1).train()
+    card = tgpt.tiny_gpt(vocab_size=97, hidden_size=128, num_heads=2,
+                         attention_impl="flash", dropout_rate=0.1)
+    card = card.to(cuda_device).train()
+    card.load_state_dict(cpu.state_dict())
+    ids = torch.from_numpy(np.random.default_rng(2).integers(1, 97, (2, 80)))
+    mask = _mask(80, (80, 70), "cpu")
+    before = (tfa.launches, tfa.dq_launches, tfa.dkv_launches)
+    losses = []
+    for model, dev in ((cpu, "cpu"), (card, cuda_device)):
+        logits = model(ids.to(dev), attention_mask=mask.to(dev),
+                       rng=torch.Generator().manual_seed(3))
+        loss = causal_lm_loss(logits, ids.to(dev), mask.to(dev))
+        loss.backward()
+        losses.append(loss.item())
+    torch.cuda.synchronize()
+    assert (tfa.launches, tfa.dq_launches, tfa.dkv_launches) == tuple(
+        n + 2 for n in before)  # one of each per layer on the card
+    assert losses[1] == pytest.approx(losses[0], rel=1e-5)
+    # Each gradient within 1e-4 of its largest |ref|; the key bias, zero in
+    # exact arithmetic, within 1e-8 of the largest gradient of the model.
+    top = max(p.grad.abs().max().item() for p in cpu.parameters())
+    for (name, p), q in zip(cpu.named_parameters(), card.parameters()):
+        scale = max(p.grad.abs().max().item(), 1e-4 * top)
+        torch.testing.assert_close(q.grad.cpu(), p.grad, rtol=1e-4,
+                                   atol=1e-4 * scale, msg=name)

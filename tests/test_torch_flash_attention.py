@@ -1,14 +1,16 @@
 """The port's flash attention (distributeddeeplearning_tpu_torch/ops/
 flash_attention.py) and attention dispatch against the JAX package.
 
-On the CPU the port's plain flash version is held against the Pallas kernel
-in interpret mode: o against ``flash_attention``, lse against ``_fwd``. The
-CUDA kernel is held against the plain version on the card in
-tests/test_torch_cuda.py.
+On the CPU the port's plain flash versions are held against the Pallas
+kernels in interpret mode: o against ``flash_attention``, lse against
+``_fwd``, and the gradients against ``jax.vjp`` of ``flash_attention``, with
+and without dropout. The CUDA kernels are held against the plain versions on
+the card in tests/test_torch_cuda.py.
 """
 
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -158,12 +160,19 @@ def test_multihead_attention_rejects_unported_impls(impl, exc):
 
 
 def test_attention_dropout_raises_only_in_training():
+    """Dropout runs only in training, and there it needs an int32 seed or a
+    torch.Generator to draw one from."""
     q = torch.zeros((1, 4, 2, 8))
     kw = dict(impl="dense", causal=True, dtype=torch.float32,
               dropout_rate=0.1)
     tattn.multihead_attention(q, q, q, None, training=False, **kw)
-    with pytest.raises(NotImplementedError, match="training"):
+    with pytest.raises(ValueError, match="dropout_rng"):
         tattn.multihead_attention(q, q, q, None, training=True, **kw)
+    tattn.multihead_attention(q, q, q, None, training=True, dropout_rng=3,
+                              **kw)
+    tattn.multihead_attention(q, q, q, None, training=True,
+                              dropout_rng=torch.Generator().manual_seed(0),
+                              **kw)
 
 
 @pytest.mark.parametrize("qb,kb,sq,sk", [(0, 0, 8, 8), (1, 0, 8, 16),
@@ -172,3 +181,108 @@ def test_block_causal_mask_matches_jax(qb, kb, sq, sk):
     ref = np.asarray(jmasks.block_causal_mask(qb, kb, sq, sk))
     np.testing.assert_array_equal(
         tmasks.block_causal_mask(qb, kb, sq, sk).numpy(), ref)
+
+
+def _jax_flash_vjp(q, k, v, g, mask, causal, dtype, rate, seed):
+    """(o, dq, dk, dv) of the Pallas kernels in interpret mode, by jax.vjp
+    with cotangent g."""
+    def f(jq, jk, jv):
+        return jfa.flash_attention(jq, jk, jv, jnp.asarray(mask),
+                                   causal=causal, block_q=32, block_k=32,
+                                   interpret=True, dropout_rate=rate,
+                                   dropout_seed=jnp.int32(seed))
+
+    o, vjp = jax.vjp(f, *(jnp.asarray(x, dtype) for x in (q, k, v)))
+    grads = vjp(jnp.asarray(g, dtype))
+    return [np.asarray(x.astype(jnp.float32)) for x in (o, *grads)]
+
+
+def _port_flash_vjp(q, k, v, g, mask, causal, dtype, rate, seed):
+    """(o, dq, dk, dv) of the port's autograd function on the CPU."""
+    tq, tk, tv = (torch.from_numpy(x).to(dtype).requires_grad_()
+                  for x in (q, k, v))
+    o = tfa.flash_attention(tq, tk, tv, torch.from_numpy(mask),
+                            causal=causal, dropout_rate=rate,
+                            dropout_seed=seed)
+    o.backward(torch.from_numpy(g).to(dtype))
+    return [x.detach().float().numpy()
+            for x in (o, tq.grad, tk.grad, tv.grad)]
+
+
+@pytest.mark.parametrize("s,causal,lengths,dtype,rate", [
+    (64, True, (64, 64), "float32", 0.0),      # causal, tile skip
+    (64, True, (50, 0), "float32", 0.0),       # padded + fully masked row
+    (160, True, (160, 117), "float32", 0.1),   # S the JAX side pads to 256
+    (64, False, (64, 41), "float32", 0.5),     # full, padded, dropout
+    (64, True, (64, 47), "bfloat16", 0.1),
+])
+def test_plain_backward_matches_pallas_vjp(s, causal, lengths, dtype, rate):
+    """The plain forward and backward (the kernels' CPU versions) against
+    jax.vjp of the Pallas kernels in interpret mode. f32 at F32 and bf16 at
+    BF16, each gradient relative to its largest |ref|: the two sides
+    accumulate in another order and, in bf16, round p and ds at the same
+    points from slightly different f32 values."""
+    q, k, v = _qkv(s + 11, s)
+    g = np.random.default_rng(s).standard_normal(q.shape).astype(np.float32)
+    mask = _mask(s, lengths)
+    seed = -123456789
+    ref = _jax_flash_vjp(q, k, v, g, mask, causal, getattr(jnp, dtype), rate,
+                         seed)
+    out = _port_flash_vjp(q, k, v, g, mask, causal, getattr(torch, dtype),
+                          rate, seed)
+    tol = F32 if dtype == "float32" else BF16
+    for name, a, b in zip(("o", "dq", "dk", "dv"), out, ref):
+        scale = max(float(np.abs(b).max()), 1e-30)
+        np.testing.assert_allclose(a / scale, b / scale, err_msg=name, **tol)
+    if 0 in lengths:  # a fully masked row contributes nothing
+        row = lengths.index(0)
+        assert not any(x[row].any() for x in out)
+
+
+def test_plain_forward_dropout_matches_pallas_bitwise_mask():
+    """With dropout, o and lse against the Pallas forward: the same hash
+    mask drops the same probabilities."""
+    s = 64
+    q, k, v = _qkv(5, s)
+    mask = _mask(s, (64, 30))
+    for seed in (7, -(2 ** 31)):
+        ref = jfa.flash_attention(*(jnp.asarray(x) for x in (q, k, v)),
+                                  jnp.asarray(mask), causal=True,
+                                  block_q=32, block_k=32, interpret=True,
+                                  dropout_rate=0.3,
+                                  dropout_seed=jnp.int32(seed))
+        o, _ = tfa.flash_attention_fwd(
+            *(torch.from_numpy(x) for x in (q, k, v)),
+            torch.from_numpy(mask), causal=True, dropout_rate=0.3,
+            dropout_seed=seed)
+        np.testing.assert_allclose(o.numpy(), np.asarray(ref), **F32)
+
+
+def test_flash_dropout_needs_a_seed():
+    q = torch.zeros((1, 8, 2, 16))
+    with pytest.raises(ValueError, match="dropout_seed"):
+        tfa.flash_attention(q, q, q, dropout_rate=0.1)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_dense_and_flash_drop_the_same_probabilities(causal):
+    """Inside the port, dense (materialized hash mask) and flash (the
+    mask regenerated per tile) give the same output and gradients at one
+    seed; a different seed gives a different output."""
+    s = 40
+    q, k, v = (torch.from_numpy(x) for x in _qkv(9, s))
+    mask = torch.ones((B, s), dtype=torch.bool)
+    outs = {}
+    for impl in ("dense", "flash"):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = tattn.multihead_attention(
+            *leaves, mask, impl=impl, causal=causal, dtype=torch.float32,
+            dropout_rate=0.2, dropout_rng=42, training=True)
+        out.square().sum().backward()
+        outs[impl] = [out.detach()] + [x.grad for x in leaves]
+    for a, b in zip(outs["dense"], outs["flash"]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), **F32)
+    other = tattn.multihead_attention(
+        q, k, v, mask, impl="flash", causal=causal, dtype=torch.float32,
+        dropout_rate=0.2, dropout_rng=43, training=True)
+    assert not torch.allclose(other, outs["flash"][0])

@@ -8,11 +8,17 @@ never takes the cores the timing-sensitive JAX tests of other workers need.
 
 from __future__ import annotations
 
+import functools
+
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from flax.linen import meta as flax_meta
+
+from distributeddeeplearning_tpu.models import gpt as jgpt
+from distributeddeeplearning_tpu.models import llama as jllama
 
 # f32: both sides compute in f32 and differ only in summation order.
 F32 = dict(rtol=1e-5, atol=1e-5)
@@ -43,3 +49,26 @@ def flat_params(tree, prefix: str = "") -> dict:
         else:
             flat[f"{prefix}{key}"] = np.asarray(value)
     return flat
+
+
+def close_rel(out: dict, ref: dict, tol=F32) -> None:
+    """Each tensor of ``out`` against ``ref`` relative to the tensor's
+    largest |ref|. A tensor whose gradient is zero in exact arithmetic (the
+    key bias: softmax ignores a constant added to a row's scores) holds only
+    rounding noise on both sides, so no scale is taken below 1e-4 of the
+    largest |ref| of all tensors."""
+    assert out.keys() == ref.keys()
+    floor = 1e-4 * max(float(np.abs(v).max()) for v in ref.values())
+    for key in ref:
+        scale = max(float(np.abs(ref[key]).max()), floor, 1e-30)
+        np.testing.assert_allclose(out[key] / scale, ref[key] / scale,
+                                   err_msg=key, **tol)
+
+
+@functools.lru_cache(maxsize=None)
+def tiny_lm_params(family: str, vocab: int) -> dict:
+    """JAX-initialised params of gpt_tiny or llama_tiny, as numpy."""
+    build = {"gpt": jgpt.tiny_gpt, "llama": jllama.tiny_llama}[family]
+    init = jax.jit(lambda key: build(vocab_size=vocab).init(
+        {"params": key}, jnp.ones((1, 8), jnp.int32), train=False))
+    return flax_params(init(jax.random.key(0)))
