@@ -32,11 +32,26 @@ Run from the root of a checkout. Phases:
    each kernel must be launched 12 x steps times, every loss finite and the
    first near ln(vocab); tokens/s and a device-time profile of one step;
 9. one training step at full width in f32 through flash and through dense
-   on the same batch and dropout seeds: loss and every gradient must agree.
+   on the same batch and dropout seeds: loss and every gradient must agree;
+10. the BatchNorm kernel grid: kernels #4-#7 against their plain versions
+   at the 16 (M, C, relu, residual) variants of ResNet-50's 53 BatchNorm
+   layers at batch 512 (12 distinct shapes), in bf16 and f32, with device
+   times, bounds, the plain versions' times and ``F.batch_norm``'s forward
+   and backward as the library yardstick; #4 and #6 run twice and must
+   repeat bit for bit;
+11. the ResNet training path: ``python -m distributeddeeplearning_tpu_torch.
+   train --model resnet50 --batch-size 512 --synthetic --fused-bn`` for a
+   few steps (224x224, 1000 classes, bf16 compute, f32 masters, the JAX
+   default sgd); each BatchNorm kernel must be launched 53 x steps times,
+   every loss finite and the first near ln(1000); images/s, peak memory and
+   a device-time profile of one step;
+12. one f32 step of ResNet-50 at batch 32 with ``fused_bn`` on and off, same
+   weights and batch: loss, every gradient and every running buffer must
+   agree.
 
-It prints a ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
-{...}}``. Any failed phase exits non-zero without that last line, and so
-does a machine without a card.
+Each phase prints its wall seconds. It prints a ``{"kernels": [...]}`` line
+and, last, ``{"ok": true, "device": {...}}``. Any failed phase exits
+non-zero without that last line, and so does a machine without a card.
 """
 
 from __future__ import annotations
@@ -96,6 +111,40 @@ FIRST_LOSS_TOL = 0.5
 DENSE_BATCH = 4
 STEP_LOSS_TOL = 1e-4
 STEP_GRAD_TOL = 1e-3
+# BatchNorm kernels vs plain versions, per channel column, fixed before the
+# first run of the grid. The elementwise outputs (#5 y, #7 dx and dres)
+# compute the same f32 formula in the same order: f32 within 1e-5 of the
+# column's largest |ref|; a bf16 output is rounded once and may sit one ulp
+# away, 2^-7 of that. The reductions (#4 mean and var, #6 dbeta and dgamma)
+# sum the same f32 terms in another order: within 1e-5 of the column's sum
+# of |terms| (mean: of |x| / M; var: of 2 x^2 / M).
+BN_ROW_TOL = {"float32": 1e-5, "bfloat16": 2 ** -7}
+BN_SUM_TOL = 1e-5
+BN_EPS = 1e-5
+# ResNet training path: ResNet-50 at batch 512, 224x224, 1000 classes.
+RESNET_BATCH, RESNET_IMAGE, RESNET_CLASSES, RESNET_STEPS = 512, 224, 1000, 6
+RESNET_BN_LAYERS = 53  # the stem, 16 blocks x 3, 4 downsample BatchNorms
+# The first loss sits near ln(1000) = 6.908: a CPU forward of the port's
+# seeded ResNet-50 (batch 16) gave logits with a std of 0.41 (adding about
+# 0.08) and losses 6.84 and 7.05 on two batches.
+RESNET_FIRST_LOSS_TOL = 0.3
+# Fused vs unfused, one f32 ResNet-50 step at batch 32 (TF32 off): the loss
+# within 1e-4 and each running buffer within 1e-5 of max(its largest |ref|,
+# 1). The gradients are held to the same step in float64 (unfused), each
+# relative to max(its largest |ref|, 1e-4 of the largest of all): the fused
+# f32 step's worst tensor, and its error over all gradients in the 2-norm,
+# may be at most FUSED_GRAD_FACTOR times the unfused f32 step's. Both f32
+# steps sit far from exact arithmetic: at this seed the unfused one is
+# 3.3e-2 off in its worst tensor and 5.7e-4 in the 2-norm (this phase on
+# an H100, PERF.md). Likely cause: a relu or max-pool decision that flips
+# on a last-bit change of the forward moves whole gradient elements, and
+# cancelling sums (a BatchNorm's dbeta; stage 4 has M = 1,568 rows) magnify
+# it. So two f32 orders of summation cannot agree within 1e-3 a tensor;
+# each is held against the f64 step instead.
+FUSED_BATCH = 32
+FUSED_LOSS_TOL = 1e-4
+FUSED_GRAD_FACTOR = 2.0
+FUSED_BUFFER_TOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -385,8 +434,8 @@ def phase_gpt2(kernels, failures, scratch: Path) -> dict:
     cli_s = time.perf_counter() - t0
     launches = read_counts(kernels)
     # Sampling runs the forward kernel only.
-    expected = {"flash_attention_fwd": 12 * NEW_TOKENS,
-                "flash_attention_dq": 0, "flash_attention_dkv": 0}
+    expected = {k["name"]: 0 for k in kernels}
+    expected["flash_attention_fwd"] = 12 * NEW_TOKENS
     log(f"# gpt2_small --attn flash: CLI {cli_s:.2f} s (load + sample), "
         f"launches {launches}, expected {expected}")
     if launches != expected:
@@ -454,14 +503,22 @@ def phase_gpt2(kernels, failures, scratch: Path) -> dict:
 
 # Kernel classes of a step profile, by a substring of the kernel's name; the
 # first match wins.
+FLASH_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
+BN_KERNELS = ("bn_stats_partial_kernel", "bn_apply_kernel",
+              "bn_bwd_reduce_partial_kernel", "bn_bwd_dx_kernel",
+              "bn_finish_kernel")
 KERNEL_CLASSES = (
-    ("flash", ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")),
+    ("flash", FLASH_KERNELS),
+    ("bn", BN_KERNELS),
+    # cuDNN's convolutions (before "gemm": their names hold implicit_gemm).
+    ("conv", ("conv", "fprop", "dgrad", "wgrad", "cudnn", "implicit")),
     ("gemm", ("gemm", "gemv", "cutlass", "xmma", "nvjet")),
     ("optimizer", ("multi_tensor_apply",)),
     ("embedding", ("embedding", "indexing_backward", "indexselect",
                    "index_select", "radix", "segment", "scatter")),
     ("norm", ("layer_norm", "gammabeta")),
     ("softmax", ("softmax",)),
+    ("pool", ("pool",)),
     ("reduce", ("reduce",)),
     ("elementwise", ("elementwise",)),
 )
@@ -475,12 +532,14 @@ def kernel_class(name: str) -> str:
     return "other"
 
 
-def step_profile(label: str, step, *, grad: bool = False) -> dict:
+def step_profile(label: str, step, *, grad: bool = False,
+                 focus=("flash", FLASH_KERNELS)) -> dict:
     """Where one step's device time goes: torch.profiler's kernel records
     of one call of ``step``, summed by kernel name, against the wall time of
     an unprofiled call (the profiler's own host work would inflate it); the
     rest is the device's idle share. ``grad``: run with autograd (a training
-    step) instead of under inference mode. Returns the printed record."""
+    step) instead of under inference mode. ``focus``: (label, kernel names)
+    whose times the record lists one by one. Returns the printed record."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -508,9 +567,8 @@ def step_profile(label: str, step, *, grad: bool = False) -> dict:
             f"recorded no kernels)")
         return {}
     busy = sum(by_name.values())
-    flash = {k: sum(v for n, v in by_name.items() if k in n)
-             for k in ("flash_fwd_kernel", "flash_dq_kernel",
-                       "flash_dkv_kernel")}
+    tag, names = focus
+    mine = {k: sum(v for n, v in by_name.items() if k in n) for k in names}
     by_class: dict[str, float] = {}
     top: dict[str, float] = {}
     for name, us in by_name.items():
@@ -520,7 +578,7 @@ def step_profile(label: str, step, *, grad: bool = False) -> dict:
     record = {
         "wall_us": wall_us, "device_busy_us": busy,
         "idle_share": 1.0 - busy / wall_us, "kernels": count,
-        "flash_us": flash, "flash_share_of_busy": sum(flash.values()) / busy,
+        f"{tag}_us": mine, f"{tag}_share_of_busy": sum(mine.values()) / busy,
         "by_class_us": dict(sorted(by_class.items(), key=lambda kv: -kv[1])),
         "top_kernels_us": dict(sorted(top.items(),
                                       key=lambda kv: -kv[1])[:15])}
@@ -721,6 +779,8 @@ def phase_train(kernels, failures) -> dict:
     device-time profile of one step of the same configuration."""
     import torch
 
+    from distributeddeeplearning_tpu_torch.ops import flash_attention as fa
+
     from distributeddeeplearning_tpu_torch.data.synthetic import (
         SyntheticCausalTokens)
     from distributeddeeplearning_tpu_torch.train import cli as train_cli
@@ -736,7 +796,8 @@ def phase_train(kernels, failures) -> dict:
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
     launches = read_counts(kernels)
-    expected = {k["name"]: 12 * TRAIN_STEPS for k in kernels}
+    expected = {k["name"]: 12 * TRAIN_STEPS if k["module"] is fa else 0
+                for k in kernels}
     metrics = [x for x in lines if "step" in x]
     summary = lines[-1].get("summary", {})
     losses = [x["loss"] for x in metrics]
@@ -823,6 +884,314 @@ def phase_flash_vs_dense_step(failures) -> None:
     torch.cuda.empty_cache()
 
 
+def resnet50_bn_layers() -> list[tuple]:
+    """(N, H, W, C, relu, residual) of each of ResNet-50's BatchNorm layers
+    at the training path's batch and image size, in forward order: a
+    forward of the unfused model on the meta device, recorded by hooks."""
+    import torch
+
+    from distributeddeeplearning_tpu_torch.models import resnet
+
+    layers = []
+
+    def record(mod, args, out):
+        n, c, h, w = args[0].shape
+        layers.append((n, h, w, c, mod.relu, len(args) > 1))
+
+    with torch.device("meta"):
+        model = resnet.resnet50(dtype=torch.bfloat16).train()
+        for mod in model.modules():
+            if isinstance(mod, resnet.BatchNormAct):
+                mod.register_forward_hook(record)
+        model(torch.empty(RESNET_BATCH, RESNET_IMAGE, RESNET_IMAGE, 3))
+    return layers
+
+
+def bn_bytes(m: int, c: int, dtype: str, relu: bool, res: bool) -> dict:
+    """The bytes each BatchNorm kernel must move at (M, C): each (M, C)
+    input read once, each (M, C) output written once, the f32 (C,) vectors
+    read or written once."""
+    e, vec = m * c * (4 if dtype == "float32" else 2), 4 * c
+    return {"bn_stats": e + 2 * vec,                             # x; mean, var
+            "bn_apply": (2 + res) * e + 4 * vec,         # x [res], y; 4 vecs
+            "bn_bwd_reduce": (2 + relu) * e + 4 * vec,   # dy, x [y]; 4 vecs
+            "bn_bwd_dx": (3 + relu + res) * e + 6 * vec}  # dy, x [y], dx [dres]
+
+
+def col_share(out, ref, limit) -> tuple[float, float]:
+    """(max abs error, largest error as a share of its column's limit)."""
+    diff = (out.float() - ref.float()).abs()
+    return diff.max().item(), (diff / limit).max().item()
+
+
+def bn_case(bn, n, h, w, c, relu, res, dtype, seed) -> list[dict]:
+    """One grid row: kernels #4-#7 at (M, C) = (N*H*W, C) against their
+    plain versions, with device times, bounds and the library yardstick
+    (``F.batch_norm`` in training on the channels_last tensor: its forward
+    for #4 and #5, its backward for #6 and #7). #4 and #6 run twice and
+    must agree bit for bit."""
+    import torch
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    tdt = getattr(torch, dtype)
+    m = n * h * w
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x, dy, r = (torch.randn((m, c), generator=gen, device=dev).to(tdt)
+                for _ in range(3))
+    r = r if res else None
+    gamma, beta = (torch.rand(c, generator=gen, device=dev) + 0.5
+                   for _ in range(2))
+    xf = x.float()
+    rtol = BN_ROW_TOL[dtype]
+    mean, var = bn.bn_stats(x)
+    again = bn.bn_stats(x)
+    ref_mean, ref_var = bn.bn_stats_reference(x)
+    inv = torch.rsqrt(var + BN_EPS)
+    errs = {"bn_stats": [
+        col_share(mean, ref_mean, BN_SUM_TOL * xf.abs().mean(dim=0)),
+        col_share(var, ref_var, BN_SUM_TOL * 2 * (xf * xf).mean(dim=0))]}
+    repeat = {"bn_stats": all(torch.equal(a, b)
+                              for a, b in zip((mean, var), again))}
+    y = bn.bn_apply(x, mean, inv, gamma, beta, r, relu=relu)
+    ref_y = bn.bn_apply_reference(x, mean, inv, gamma, beta, r, relu=relu)
+    errs["bn_apply"] = [col_share(y, ref_y, rtol * ref_y.float().abs().amax(
+        dim=0) + 1e-30)]
+    db, dg = bn.bn_bwd_reduce(dy, y, x, mean, inv, relu=relu)
+    again = bn.bn_bwd_reduce(dy, y, x, mean, inv, relu=relu)
+    ref_db, ref_dg = bn.bn_bwd_reduce_reference(dy, y, x, mean, inv,
+                                                relu=relu)
+    dz = torch.where(y.float() > 0, dy.float(), 0.0) if relu else dy.float()
+    errs["bn_bwd_reduce"] = [
+        col_share(db, ref_db, BN_SUM_TOL * dz.abs().sum(dim=0)),
+        col_share(dg, ref_dg, BN_SUM_TOL * (dz * (xf - mean) * inv).abs()
+                  .sum(dim=0))]
+    repeat["bn_bwd_reduce"] = all(torch.equal(a, b)
+                                  for a, b in zip((db, dg), again))
+    del dz, xf
+    outs = bn.bn_bwd_dx(dy, y, x, mean, inv, gamma, db, dg, relu=relu,
+                        want_dres=res)
+    refs = bn.bn_bwd_dx_reference(dy, y, x, mean, inv, gamma, db, dg,
+                                  relu=relu, want_dres=res)
+    errs["bn_bwd_dx"] = [col_share(o, rf, rtol * rf.float().abs().amax(
+        dim=0) + 1e-30) for o, rf in zip(outs, refs) if rf is not None]
+    finite = all(bool(torch.isfinite(t.float()).all())
+                 for t in (mean, var, y, db, dg, *(o for o in outs
+                                                   if o is not None)))
+    del outs, refs, ref_y
+    torch.cuda.synchronize()
+
+    runs = {
+        "bn_stats": (lambda: bn.bn_stats(x),
+                     lambda: bn.bn_stats_reference(x)),
+        "bn_apply": (lambda: bn.bn_apply(x, mean, inv, gamma, beta, r,
+                                         relu=relu),
+                     lambda: bn.bn_apply_reference(x, mean, inv, gamma, beta,
+                                                   r, relu=relu)),
+        "bn_bwd_reduce": (lambda: bn.bn_bwd_reduce(dy, y, x, mean, inv,
+                                                   relu=relu),
+                          lambda: bn.bn_bwd_reduce_reference(
+                              dy, y, x, mean, inv, relu=relu)),
+        "bn_bwd_dx": (lambda: bn.bn_bwd_dx(dy, y, x, mean, inv, gamma, db, dg,
+                                           relu=relu, want_dres=res),
+                      lambda: bn.bn_bwd_dx_reference(
+                          dy, y, x, mean, inv, gamma, db, dg, relu=relu,
+                          want_dres=res)),
+    }
+    # The library: one F.batch_norm in training on the same x as the
+    # channels_last (N, C, H, W) tensor, forward and (eager) backward.
+    x4 = x.view(n, h, w, c).permute(0, 3, 1, 2).detach().requires_grad_()
+    w4, b4 = (t.clone().requires_grad_() for t in (gamma, beta))
+    run_mean, run_var = torch.zeros(c, device=dev), torch.ones(c, device=dev)
+    with torch.no_grad():
+        lib_fwd = device_ms(lambda: F.batch_norm(
+            x4, run_mean, run_var, w4, b4, training=True, eps=BN_EPS))
+    out4 = F.batch_norm(x4, run_mean, run_var, w4, b4, training=True,
+                        eps=BN_EPS)
+    dy4 = dy.view(n, h, w, c).permute(0, 3, 1, 2)
+    lib_bwd = call_ms(lambda: torch.autograd.grad(out4, (x4, w4, b4), dy4,
+                                                  retain_graph=True))
+    del out4
+    nbytes = bn_bytes(m, c, dtype, relu, res)
+    rows = []
+    for name, (kernel, plain) in runs.items():
+        share = max(e[1] for e in errs[name])
+        rows.append({
+            "kernel": name, "n": n, "h": h, "w": w, "m": m, "c": c,
+            "dtype": dtype, "relu": relu, "residual": res,
+            "max_abs_err": max(e[0] for e in errs[name]),
+            "err_over_tol": share, "repeats": repeat.get(name),
+            "ok": finite and share <= 1.0 and repeat.get(name, True),
+            "ms": device_ms(kernel), "plain_ms": device_ms(plain),
+            "library_ms": lib_fwd if name in ("bn_stats", "bn_apply")
+            else lib_bwd,
+            "bound_ms": nbytes[name] / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes"})
+    return rows
+
+
+def phase_bn_grid(bn, failures) -> dict:
+    """Kernels #4-#7 over the distinct (M, C, relu, residual) variants of
+    ResNet-50's BatchNorm layers at batch 512, in bf16 (the training path's
+    dtype) and f32. Returns {dtype: {variant: rows by kernel}} and logs
+    each row, and for bf16 each kernel's time summed over one step's 53
+    layers."""
+    import torch
+
+    layers = resnet50_bn_layers()
+    variants = sorted(set(layers), key=lambda v: -v[0] * v[1] * v[2] * v[3])
+    grid = {}
+    seed = SEED + 20
+    for dtype in ("bfloat16", "float32"):
+        grid[dtype] = {}
+        for v in variants:
+            seed += 1
+            rows = bn_case(bn, *v, dtype, seed)
+            grid[dtype][v] = {r["kernel"]: r for r in rows}
+            for r in rows:
+                log("# bn_grid " + json.dumps(r))
+                if not r["ok"]:
+                    failures.append(f"{r['kernel']} disagrees with its plain "
+                                    f"version or does not repeat: {r}")
+            torch.cuda.empty_cache()
+    step = {}
+    for name in ("bn_stats", "bn_apply", "bn_bwd_reduce", "bn_bwd_dx"):
+        step[name] = {key: sum(grid["bfloat16"][v][name][key] for v in layers)
+                      for key in ("ms", "bound_ms", "plain_ms",
+                                  "library_ms")}
+    log("# bn_grid one ResNet-50 step (53 layers, bf16, batch 512), summed "
+        "ms by kernel: " + json.dumps(step))
+    return {"grid": grid, "step": step, "stem": layers[0]}
+
+
+def phase_resnet_train(kernels, failures) -> dict:
+    """The ResNet training path: ResNet-50 --fused-bn at batch 512 through
+    the CLI, then a device-time profile of one step of the same
+    configuration."""
+    import torch
+
+    from distributeddeeplearning_tpu_torch.ops import fused_batchnorm as bn
+    from distributeddeeplearning_tpu_torch.train import cli as train_cli
+    from distributeddeeplearning_tpu_torch.train import loop, steps
+
+    argv = ["--model", "resnet50", "--batch-size", str(RESNET_BATCH),
+            "--synthetic", "--fused-bn", "--steps", str(RESNET_STEPS),
+            "--log-every", "1", "--seed", str(SEED)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    lines = run_train_cli(argv)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = read_counts(kernels)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    expected = {k["name"]: RESNET_BN_LAYERS * RESNET_STEPS
+                if k["module"] is bn else 0 for k in kernels}
+    metrics = [x for x in lines if "step" in x]
+    summary = lines[-1].get("summary", {})
+    losses = [x["loss"] for x in metrics]
+    log(f"# resnet50 --fused-bn train: CLI {cli_s:.2f} s, launches "
+        f"{launches}, expected {expected}, losses {losses}, peak memory "
+        f"{peak_gb:.2f} GB, summary {json.dumps(summary)}")
+    if launches != expected:
+        failures.append(f"ResNet training path launches {launches}, "
+                        f"expected {expected}")
+    if (len(losses) != RESNET_STEPS
+            or not all(np.isfinite(x) for x in losses)
+            or abs(losses[0] - np.log(RESNET_CLASSES))
+            > RESNET_FIRST_LOSS_TOL):
+        failures.append(f"ResNet losses {losses}: need {RESNET_STEPS} "
+                        f"finite, the first within {RESNET_FIRST_LOSS_TOL} "
+                        f"of ln {RESNET_CLASSES}")
+    if not summary.get("examples_per_sec"):
+        failures.append(f"ResNet summary without images/s: {summary}")
+
+    config = train_cli.build_config(train_cli.parse_args(argv))
+    state, sched = loop.build_state(config, torch.device("cuda"))
+    train_step = steps.make_train_step(config, sched)
+    batch = loop.make_source(config, state.model, "cuda").batch(0)
+    profile = step_profile("resnet50 train step (bf16, --fused-bn, batch "
+                           f"{RESNET_BATCH})", lambda: train_step(state,
+                                                                  batch),
+                           grad=True, focus=("bn", BN_KERNELS))
+    del state, batch
+    torch.cuda.empty_cache()
+    return {"launches": launches, "summary": summary, "profile": profile,
+            "peak_memory_gb": peak_gb, "losses": losses}
+
+
+def phase_fused_vs_unfused_step(failures) -> None:
+    """One step of ResNet-50 at batch 32 in f32 with fused_bn on and off,
+    and unfused in f64 as the reference of exact arithmetic: the same
+    seeded weights and batch. The f32 losses and updated running buffers
+    are compared with each other, each f32 step's gradients with the f64
+    step's."""
+    import torch
+
+    from distributeddeeplearning_tpu_torch.data.synthetic import (
+        SyntheticImages)
+    from distributeddeeplearning_tpu_torch.models import get_model
+    from distributeddeeplearning_tpu_torch.train.losses import (
+        smoothed_softmax_ce)
+
+    batch = SyntheticImages(FUSED_BATCH, RESNET_IMAGE, RESNET_CLASSES,
+                            SEED + 9, "cuda").batch(0)
+    results, state = {}, None
+    torch.manual_seed(SEED + 10)  # the weights, from a seed
+    for name, dtype, fused in (("fused", torch.float32, True),
+                               ("unfused", torch.float32, False),
+                               ("f64", torch.float64, False)):
+        model = get_model("resnet50", dtype=dtype, fused_bn=fused).train()
+        if state is None:  # a copy: the forward updates the buffers
+            state = {k: v.clone() for k, v in model.state_dict().items()}
+        else:
+            model.load_state_dict(state)
+        loss = smoothed_softmax_ce(model(batch["image"]), batch["label"])
+        loss.backward()
+        results[name] = (loss.item(), {n: p.grad.double() for n, p in
+                                       model.named_parameters()},
+                         {n: b.clone() for n, b in model.named_buffers()})
+        del model, loss
+        torch.cuda.empty_cache()
+    (loss_f, grads_f, bufs_f), (loss_u, grads_u, bufs_u), (_, grads_x, _) = (
+        results["fused"], results["unfused"], results["f64"])
+    top = max(g.abs().max().item() for g in grads_x.values())
+    norm = sum((g * g).sum().item() for g in grads_x.values()) ** 0.5
+
+    def errs(grads, ref):
+        """(worst tensor, its name, 2-norm error over all tensors)."""
+        worst = max((((grads[n] - g).abs().max().item()
+                      / max(g.abs().max().item(), 1e-4 * top)), n)
+                    for n, g in ref.items())
+        total = sum(((grads[n] - g) ** 2).sum().item()
+                    for n, g in ref.items()) ** 0.5
+        return worst[0], worst[1], total / norm
+
+    fused, unfused, between = (errs(grads_f, grads_x),
+                               errs(grads_u, grads_x),
+                               errs(grads_f, grads_u))
+    buf_err = max((bufs_f[n] - b).abs().max().item()
+                  / max(b.abs().max().item(), 1.0)
+                  for n, b in bufs_u.items())
+    loss_err = abs(loss_f - loss_u)
+    log(f"# resnet50 step, fused f32 vs unfused f32 vs unfused f64 (batch "
+        f"{FUSED_BATCH}): losses {loss_f!r} / {loss_u!r}, loss err "
+        f"{loss_err:.3e}, worst running-buffer err {buf_err:.3e}; gradients "
+        f"against f64, worst tensor and 2-norm: fused {fused[0]:.3e} "
+        f"({fused[1]}), {fused[2]:.3e}; unfused {unfused[0]:.3e} "
+        f"({unfused[1]}), {unfused[2]:.3e}; fused against unfused "
+        f"{between[0]:.3e} ({between[1]}), {between[2]:.3e}")
+    if not (loss_err <= FUSED_LOSS_TOL and buf_err <= FUSED_BUFFER_TOL
+            and fused[0] <= FUSED_GRAD_FACTOR * unfused[0]
+            and fused[2] <= FUSED_GRAD_FACTOR * unfused[2]):
+        failures.append(f"fused vs unfused ResNet step: loss err {loss_err}, "
+                        f"buffer err {buf_err}, gradient errs against f64 "
+                        f"fused {fused}, unfused {unfused}")
+    del results, grads_f, grads_u, grads_x
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -831,52 +1200,85 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from distributeddeeplearning_tpu_torch.ops import flash_attention as fa
+    from distributeddeeplearning_tpu_torch.ops import fused_batchnorm as bn
 
     # Full-f32 references: no TF32 in the plain versions' products.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     csrc = "distributeddeeplearning_tpu_torch/csrc/"
     replaces = "distributeddeeplearning_tpu/ops/flash_attention.py:"
+    replaces_bn = "distributeddeeplearning_tpu/ops/fused_batchnorm.py:"
     kernels = [
         {"name": "flash_attention_fwd", "counter": "launches",
-         "build": fa.SOURCE, "source": csrc + fa.SOURCE,
-         "replaces": replaces + "101"},
+         "module": fa, "build": fa.SOURCE, "replaces": replaces + "101"},
         {"name": "flash_attention_dq", "counter": "dq_launches",
-         "build": fa.BWD_SOURCE, "source": csrc + fa.BWD_SOURCE,
-         "replaces": replaces + "209"},
+         "module": fa, "build": fa.BWD_SOURCE, "replaces": replaces + "209"},
         {"name": "flash_attention_dkv", "counter": "dkv_launches",
-         "build": fa.BWD_SOURCE, "source": csrc + fa.BWD_SOURCE,
-         "replaces": replaces + "261"},
+         "module": fa, "build": fa.BWD_SOURCE, "replaces": replaces + "261"},
+        {"name": "bn_stats", "counter": "stats_launches", "module": bn,
+         "build": bn.SOURCE, "replaces": replaces_bn + "147"},
+        {"name": "bn_apply", "counter": "apply_launches", "module": bn,
+         "build": bn.SOURCE, "replaces": replaces_bn + "198"},
+        {"name": "bn_bwd_reduce", "counter": "bwd_reduce_launches",
+         "module": bn, "build": bn.SOURCE, "replaces": replaces_bn + "256"},
+        {"name": "bn_bwd_dx", "counter": "bwd_dx_launches", "module": bn,
+         "build": bn.SOURCE, "replaces": replaces_bn + "331"},
     ]
     for k in kernels:
-        k.update(module=fa, route="cuda")
+        k.update(route="cuda", source=csrc + k["build"])
     failures: list[str] = []
     scratch = ROOT / ".cache" / "chip_smoke"
     scratch.mkdir(parents=True, exist_ok=True)
+    t_start = time.perf_counter()
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"# phase {name}: {time.perf_counter() - t0:.2f} s")
+        return out
+
     try:
-        phase_card()
-        phase_build(kernels)
-        phase_flash_grid(fa, failures)
-        phase_gpt2(kernels, failures, scratch)
-        phase_llama(fa, failures)
-        phase_bwd_grid(fa, failures)
-        main_rows = phase_train_rows(fa)
-        train = phase_train(kernels, failures)
-        phase_flash_vs_dense_step(failures)
+        timed("card", phase_card)
+        timed("build", phase_build, kernels)
+        timed("flash_grid", phase_flash_grid, fa, failures)
+        timed("gpt2_sampling", phase_gpt2, kernels, failures, scratch)
+        timed("llama", phase_llama, fa, failures)
+        timed("bwd_grid", phase_bwd_grid, fa, failures)
+        main_rows = timed("train_rows", phase_train_rows, fa)
+        train = timed("gpt2_train", phase_train, kernels, failures)
+        timed("flash_vs_dense_step", phase_flash_vs_dense_step, failures)
+        bn_grid = timed("bn_grid", phase_bn_grid, bn, failures)
+        resnet = timed("resnet_train", phase_resnet_train, kernels, failures)
+        timed("fused_vs_unfused_step", phase_fused_vs_unfused_step,
+              failures)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
+    log(f"# total: {time.perf_counter() - t_start:.2f} s")
     if failures:
         for f in failures:
             print(f"chip_smoke: FAILED: {f}", file=sys.stderr)
         return 1
 
-    kernel_rows = [{
-        "name": k["name"], "route": k["route"], "source": k["source"],
-        "replaces": k["replaces"], "launches": train["launches"][k["name"]],
-        **{key: main_rows[k["name"]][key] for key in (
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "library_rate")},
-    } for k in kernels]
+    # Flash rows: the GPT-2 training shape, launches from its training run.
+    # BatchNorm rows: the stem's shape (6,422,528 x 64, bf16, relu),
+    # launches from the ResNet-50 training run, and ``step_ms``: the kernel's
+    # time summed over one step's 53 layers.
+    stem = bn_grid["grid"]["bfloat16"][bn_grid["stem"]]
+    kernel_rows = []
+    for k in kernels:
+        if k["module"] is fa:
+            row, launches = main_rows[k["name"]], train["launches"]
+            extra = {"library_rate": row["library_rate"]}
+        else:
+            row, launches = stem[k["name"]], resnet["launches"]
+            extra = {"step_ms": bn_grid["step"][k["name"]]["ms"]}
+        kernel_rows.append({
+            "name": k["name"], "route": k["route"], "source": k["source"],
+            "replaces": k["replaces"], "launches": launches[k["name"]],
+            **{key: row[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "bound_by",
+                                         "library_ms")},
+            **extra})
     log(json.dumps({"kernels": kernel_rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,14 @@
 """Run configuration of the port: the subset of the JAX package's
 ``TrainConfig``/``DataConfig``/``OptimizerConfig``
-(``distributeddeeplearning_tpu/config.py``) that one-card causal-LM training
-reads, with the same field names and defaults.
+(``distributeddeeplearning_tpu/config.py``) that one-card training of the
+causal LMs and the ResNets reads, with the same field names and defaults.
 
-One default differs, because the port registers only causal LMs:
-``TrainConfig.model`` is ``gpt2_small`` (the JAX default is a ResNet). The
-data is synthetic ids over the model's own vocabulary (GPT-2's 50257,
-Llama's 32000), and runs are counted in steps, not epochs, so the warmup is
-5% of the steps, as the JAX schedule gives it without an epoch length.
+One default differs: ``TrainConfig.model`` is ``gpt2_small`` (the JAX
+default is a ResNet). The token data is synthetic ids over the model's own
+vocabulary (GPT-2's 50257, Llama's 32000), the image data synthetic NHWC
+images of ``image_size`` with ``num_classes`` labels. Runs are counted in
+steps, not epochs, so the warmup is 5% of the steps, as the JAX schedule
+gives it without an epoch length.
 """
 
 from __future__ import annotations
@@ -31,11 +32,14 @@ class OptimizerConfig:
     beta1: float = 0.9
     beta2: float = 0.999
     eps: float = 1e-8
+    label_smoothing: float = 0.1  # image classification loss
 
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
     seq_len: int = 128
+    image_size: int = 224
+    num_classes: int = 1000
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,6 +56,7 @@ class TrainConfig:
     checkpoint_every_steps: int = 5000
     resume: bool = True
     attention_impl: Optional[str] = None  # None = the model's default
+    fused_bn: bool = False        # BatchNorm through the CUDA kernels (CNNs)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     optimizer: OptimizerConfig = dataclasses.field(
         default_factory=OptimizerConfig)

@@ -1,1 +1,2 @@
-"""Training data of the port: synthetic token batches made on the device."""
+"""Training data of the port: synthetic token and image batches made on
+the device."""

@@ -1,6 +1,7 @@
-"""Model registry of the port: the causal LM entries of the JAX registry
-(``distributeddeeplearning_tpu/models/__init__.py``), same names and
-parameter counts."""
+"""Model registry of the port: the causal LM and ResNet entries of the JAX
+registry (``distributeddeeplearning_tpu/models/__init__.py``), same names
+and parameter counts, plus small test entries of the port's own
+(``gpt_nano``, ``llama_nano``, ``resnet_nano``)."""
 
 from __future__ import annotations
 
@@ -14,18 +15,24 @@ from distributeddeeplearning_tpu_torch import resolve_device
 
 @dataclasses.dataclass(frozen=True)
 class ModelSpec:
-    """Registry entry: module factory and its known parameter count."""
+    """Registry entry: module factory, its known parameter count and its
+    input kind ('tokens' or 'image', which picks the data and the loss)."""
 
     name: str
-    build: Callable[..., Any]          # (vocab_size, dtype, ...) -> nn.Module
+    build: Callable[..., Any]          # (dtype, ...) -> nn.Module
     param_count: int                   # known-good total, 0 = unchecked
+    input_kind: str = "tokens"
 
 
 def _registry() -> dict[str, ModelSpec]:
-    from distributeddeeplearning_tpu_torch.models import gpt, llama
+    from distributeddeeplearning_tpu_torch.models import gpt, llama, resnet
 
     def lm(name, build, params):
         return ModelSpec(name=name, build=build, param_count=params)
+
+    def img(name, params):
+        return ModelSpec(name=name, build=getattr(resnet, name),
+                         param_count=params, input_kind="image")
 
     return {
         "gpt2_small": lm("gpt2_small", gpt.gpt2_small, 124_439_808),
@@ -40,6 +47,14 @@ def _registry() -> dict[str, ModelSpec]:
         "llama_nano": lm("llama_nano", lambda **kw: llama.tiny_llama(
             **{"hidden_size": 32, "num_layers": 1, "num_heads": 2,
                "num_kv_heads": 1, "intermediate_size": 64, **kw}), 0),
+        "resnet18": img("resnet18", 11_689_512),
+        "resnet18_thin": img("resnet18_thin", 831_096),
+        "resnet26_thin": img("resnet26_thin", 1_392_184),
+        "resnet34": img("resnet34", 21_797_672),
+        "resnet50": img("resnet50", 25_557_032),
+        "resnet101": img("resnet101", 44_549_160),
+        "resnet152": img("resnet152", 60_192_808),
+        "resnet_nano": img("resnet_nano", 0),
     }
 
 

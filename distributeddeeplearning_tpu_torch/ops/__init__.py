@@ -1,1 +1,2 @@
-"""Attention ops: the dense/flash dispatch and the flash forward kernel."""
+"""Kernel ops: the dense/flash attention dispatch and the flash kernels, and
+the fused BatchNorm kernels."""

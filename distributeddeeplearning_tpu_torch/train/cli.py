@@ -1,15 +1,19 @@
-"""Training CLI of the PyTorch port: causal-LM training on one card.
+"""Training CLI of the PyTorch port: causal-LM and ResNet training on one
+card.
 
     python -m distributeddeeplearning_tpu_torch.train --model gpt2_small \
         --batch-size 16 --seq-len 1024 --attn flash --synthetic --steps 100
+    python -m distributeddeeplearning_tpu_torch.train --model resnet50 \
+        --batch-size 512 --synthetic --fused-bn --steps 100
 
-The counterpart of the root ``train.py`` for the causal LMs, with its flags
-where they apply. Data is synthetic token ids made on the device; weights
-start random from ``--seed``. Prints one JSON metric line per log step and a
-final ``{"summary": ...}`` line. Runs on the GPU unless ``--device cpu`` is
-given. Flags of later slices (data parallelism, accumulation, mixed
-precision with loss scaling, fused ResNet kernels, model parallelism, ZeRO)
-raise instead of being ignored.
+The counterpart of the root ``train.py`` for these models, with its flags
+where they apply. Data is synthetic token ids or images made on the device;
+weights start random from ``--seed``. Prints one JSON metric line per log
+step and a final ``{"summary": ...}`` line. Runs on the GPU unless
+``--device cpu`` is given. Flags of later slices (data parallelism and
+SyncBN, accumulation, mixed precision with loss scaling, the fused
+conv/matmul BatchNorm kernels, model parallelism, ZeRO) raise instead of
+being ignored.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import dataclasses
 import sys
 
 from distributeddeeplearning_tpu_torch.config import TrainConfig
+from distributeddeeplearning_tpu_torch.models import model_spec
 
 # Flags of train.py that this slice does not carry, and the slice that
 # brings each: (flag, value that is a no-op, later slice).
@@ -30,9 +35,12 @@ _LATER = (
     ("pp", 1, "pipeline parallelism"),
     ("precision", None, "mixed precision with dynamic loss scaling"),
     ("optimizer_sharding", None, "ZeRO optimizer sharding"),
-    ("fused_bn", False, "the ResNet slice's fused kernels"),
-    ("fused_block", False, "the ResNet slice's fused kernels"),
-    ("fused_conv3", False, "the ResNet slice's fused kernels"),
+    ("fused_block", False, "the --fused-block slice (the matmul+BatchNorm "
+     "kernels #8-#10)"),
+    ("fused_conv3", False, "the --fused-conv3 slice (the 3x3 conv+BatchNorm "
+     "kernels #11-#13)"),
+    ("sync_bn", False, "data parallelism (cross-replica BatchNorm "
+     "statistics)"),
     ("data_dir", None, "real token data"),
 )
 
@@ -46,6 +54,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="global batch (examples per step)")
     p.add_argument("--steps", type=int, required=True)
     p.add_argument("--seq-len", type=int, default=None)
+    p.add_argument("--image-size", type=int, default=None,
+                   help="side of the synthetic images (default 224)")
+    p.add_argument("--num-classes", type=int, default=None,
+                   help="classes of an image model (default 1000)")
+    p.add_argument("--fused-bn", action="store_true",
+                   help="BatchNorm(+residual)+ReLU through the CUDA kernels "
+                        "(ops/fused_batchnorm.py); image models")
     p.add_argument("--attn", default=None, choices=["dense", "flash"],
                    help="attention impl: dense, or the flash kernels")
     p.add_argument("--optimizer", default=None,
@@ -59,8 +74,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--warmup-steps", type=int, default=2,
                    help="steps excluded from throughput timing")
     p.add_argument("--synthetic", action="store_true",
-                   help="synthetic token ids (the only data this slice "
-                        "has)")
+                   help="synthetic token ids or images (the only data the "
+                        "port has)")
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--checkpoint-every", type=int, default=None)
     p.add_argument("--no-resume", action="store_true",
@@ -86,7 +101,16 @@ def build_config(args: argparse.Namespace) -> TrainConfig:
                              f"{later}")
     if args.steps <= 0:
         raise SystemExit(f"--steps must be positive (got {args.steps})")
-    cfg = TrainConfig(model=args.model, total_steps=args.steps)
+    for flag in ("image_size", "num_classes"):
+        value = getattr(args, flag)
+        if value is not None and value <= 0:
+            raise SystemExit(f"--{flag.replace('_', '-')} must be positive "
+                             f"(got {value})")
+    if args.fused_bn and model_spec(args.model).input_kind != "image":
+        raise SystemExit(f"--fused-bn: {args.model} has no BatchNorm; the "
+                         f"fused kernels serve the image models (ResNet)")
+    cfg = TrainConfig(model=args.model, total_steps=args.steps,
+                      fused_bn=args.fused_bn)
     updates = {k: v for k, v in (
         ("global_batch_size", args.batch_size), ("dtype", args.dtype),
         ("seed", args.seed), ("log_every", args.log_every),
@@ -95,8 +119,11 @@ def build_config(args: argparse.Namespace) -> TrainConfig:
         ("attention_impl", args.attn)) if v is not None}
     if args.no_resume:
         updates["resume"] = False
-    if args.seq_len:
-        updates["data"] = dataclasses.replace(cfg.data, seq_len=args.seq_len)
+    data = {k: v for k, v in (("seq_len", args.seq_len),
+                              ("image_size", args.image_size),
+                              ("num_classes", args.num_classes)) if v}
+    if data:
+        updates["data"] = dataclasses.replace(cfg.data, **data)
     opt = {k: v for k, v in (("name", args.optimizer),
                              ("learning_rate", args.lr)) if v is not None}
     if opt:

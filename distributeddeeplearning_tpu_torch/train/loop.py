@@ -2,7 +2,8 @@
 ``distributeddeeplearning_tpu/train/loop.py`` for one card.
 
 Builds the model (float32 masters, compute dtype from the config), the
-optimizer and schedule, the synthetic source and the checkpointer; resumes
+optimizer and schedule, the synthetic source of the model's input kind
+(token ids or images) and the checkpointer; resumes
 from the newest checkpoint; runs the steps; prints one JSON metric line per
 log step and returns the run summary. Throughput excludes the first
 ``warmup_steps`` steps (first-call and allocation costs), as the JAX loop
@@ -21,8 +22,8 @@ import torch
 from distributeddeeplearning_tpu_torch import resolve_device
 from distributeddeeplearning_tpu_torch.config import TrainConfig
 from distributeddeeplearning_tpu_torch.data.synthetic import (
-    SyntheticCausalTokens)
-from distributeddeeplearning_tpu_torch.models import get_model
+    SyntheticCausalTokens, SyntheticImages)
+from distributeddeeplearning_tpu_torch.models import get_model, model_spec
 from distributeddeeplearning_tpu_torch.train.checkpoint import Checkpointer
 from distributeddeeplearning_tpu_torch.train.optim import make_optimizer
 from distributeddeeplearning_tpu_torch.train.state import TrainState
@@ -36,9 +37,13 @@ def build_state(config: TrainConfig, device
     """(state at step 0, schedule): the model in training mode on
     ``device``, initialised from ``config.seed``, and its optimizer over
     ``config.total_steps``."""
-    kw: dict[str, Any] = {"seq_len": config.data.seq_len}
-    if config.attention_impl:
-        kw["attention_impl"] = config.attention_impl
+    if _is_image(config):
+        kw: dict[str, Any] = {"num_classes": config.data.num_classes,
+                              "fused_bn": config.fused_bn}
+    else:
+        kw = {"seq_len": config.data.seq_len}
+        if config.attention_impl:
+            kw["attention_impl"] = config.attention_impl
     # Weights from the seed alone; the caller's global RNG state is kept.
     with torch.random.fork_rng(
             devices=[device] if device.type == "cuda" else []):
@@ -48,6 +53,21 @@ def build_state(config: TrainConfig, device
     opt, sched = make_optimizer(config.optimizer, model,
                                 config.global_batch_size, config.total_steps)
     return TrainState(step=0, model=model, optimizer=opt), sched
+
+
+def _is_image(config: TrainConfig) -> bool:
+    return model_spec(config.model).input_kind == "image"
+
+
+def make_source(config: TrainConfig, model, device):
+    """The synthetic batches of the model's input kind."""
+    if _is_image(config):
+        return SyntheticImages(config.global_batch_size,
+                               config.data.image_size,
+                               config.data.num_classes, config.seed, device)
+    return SyntheticCausalTokens(config.global_batch_size,
+                                 config.data.seq_len, model.cfg.vocab_size,
+                                 config.seed, device)
 
 
 def _sync(device: torch.device) -> None:
@@ -73,9 +93,7 @@ def run(config: TrainConfig, *, device=None, warmup_steps: int = 2,
             print(f"# resumed from step {state.step}", file=sys.stderr,
                   flush=True)
     start = state.step
-    source = SyntheticCausalTokens(
-        config.global_batch_size, config.data.seq_len,
-        state.model.cfg.vocab_size, config.seed, device)
+    source = make_source(config, state.model, device)
     train_step = make_train_step(config, sched)
     warmup = min(warmup_steps, max(total_steps - start - 1, 0))
     metrics: dict[str, Any] = {}
@@ -92,6 +110,8 @@ def run(config: TrainConfig, *, device=None, warmup_steps: int = 2,
         if i % config.log_every == 0 or i == total_steps:
             record = {"step": i, "loss": float(metrics["loss"]),
                       "lr": metrics["lr"]}
+            if "accuracy" in metrics:
+                record["accuracy"] = float(metrics["accuracy"])
             now = time.perf_counter()  # float(loss) waited for the device
             dt = (now - t_last) / max(i - step_last, 1)
             record["step_time_s"] = round(dt, 6)
@@ -114,7 +134,9 @@ def run(config: TrainConfig, *, device=None, warmup_steps: int = 2,
         elapsed = time.perf_counter() - t_timed
         examples = timed_steps * config.global_batch_size
         summary["examples_per_sec"] = examples / elapsed
-        summary["tokens_per_sec"] = examples * config.data.seq_len / elapsed
+        if not _is_image(config):
+            summary["tokens_per_sec"] = (examples * config.data.seq_len
+                                         / elapsed)
         summary["steps_per_sec"] = timed_steps / elapsed
     emit(json.dumps({"summary": summary}))
     return summary

@@ -1,4 +1,4 @@
-"""Causal-LM loss: counterpart of the causal functions of
+"""Losses: counterpart of the causal-LM and classification functions of
 ``distributeddeeplearning_tpu/train/losses.py``.
 
 Float32 loss math whatever the compute dtype (the models emit f32 logits):
@@ -40,3 +40,21 @@ def causal_lm_loss(logits: torch.Tensor, input_ids: torch.Tensor,
     at 1)."""
     total, count = causal_lm_loss_sums(logits, input_ids, attention_mask)
     return total / count.clamp_min(1.0)
+
+
+def smoothed_softmax_ce(logits: torch.Tensor, labels: torch.Tensor,
+                        smoothing: float = 0.1) -> torch.Tensor:
+    """Label-smoothed cross entropy, mean over the batch: (B, K) x (B,) ->
+    (). The target is ``optax.smooth_labels``' (1 - smoothing) * one_hot +
+    smoothing / K, so the loss is (1 - smoothing) * CE + smoothing * the mean
+    of -log p over the classes."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, labels.long()[:, None])[:, 0]
+    if smoothing:
+        nll = (1.0 - smoothing) * nll - smoothing * logp.mean(dim=-1)
+    return nll.mean()
+
+
+def top1_accuracy(logits: torch.Tensor, labels: torch.Tensor
+                  ) -> torch.Tensor:
+    return (logits.argmax(dim=-1) == labels).float().mean()

@@ -1,7 +1,6 @@
 """Optimizers and learning-rate schedules: counterpart of
 ``distributeddeeplearning_tpu/train/optim.py`` for the optimizers the
-one-card causal-LM slice carries (sgd with momentum, adamw) and global-norm
-clipping.
+one-card slices carry (sgd with momentum, adamw) and global-norm clipping.
 
 The JAX package builds optax chains; the port builds ``torch.optim``
 optimizers whose parameter groups reproduce the same update:
@@ -13,8 +12,9 @@ optimizers whose parameter groups reproduce the same update:
 - ``optax.adamw(..., mask=)`` is ``torch.optim.AdamW`` with the same group
   split: both step ``p - lr * (adam(g) + wd * p)``;
 - the decay mask (``_decay_mask``) decays only leaves whose flax name is
-  ``kernel`` or contains ``embedding``: Dense weights. GPT's ``wte``/``wpe``,
-  Llama's ``embed_tokens``, biases and norm scales are not decayed;
+  ``kernel`` or contains ``embedding``: Dense and Conv weights. GPT's
+  ``wte``/``wpe``, Llama's ``embed_tokens``, biases and norm scales
+  (BatchNorm's too) are not decayed;
 - the schedule is read at the update's count, from 0: with warmup the first
   update has learning rate 0, as optax's ``scale_by_schedule`` gives it.
 """

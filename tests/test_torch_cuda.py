@@ -1,6 +1,8 @@
 """The port's CUDA kernels on the card, against their plain versions:
 the flash forward (with and without dropout), the dq and dk/dv backward
-kernels, and a tiny GPT's training step on the card against the CPU.
+kernels, and a tiny GPT's training step on the card against the CPU; the
+four BatchNorm kernels, and a ``resnet_nano`` training step through them
+against the plain path on the CPU.
 
 Every test here needs an NVIDIA GPU and skips without one. The file imports
 nothing of JAX, so it runs on a machine that has only PyTorch:
@@ -14,8 +16,11 @@ import pytest
 import torch
 
 from distributeddeeplearning_tpu_torch.models import gpt as tgpt
+from distributeddeeplearning_tpu_torch.models import resnet as tresnet
 from distributeddeeplearning_tpu_torch.ops import flash_attention as tfa
-from distributeddeeplearning_tpu_torch.train.losses import causal_lm_loss
+from distributeddeeplearning_tpu_torch.ops import fused_batchnorm as tbn
+from distributeddeeplearning_tpu_torch.train.losses import (
+    causal_lm_loss, smoothed_softmax_ce)
 
 # Kernel vs plain version on the card. f32: the same f32 arithmetic summed
 # in another order. bf16: o is rounded to bf16 at the end.
@@ -249,3 +254,158 @@ def test_training_step_on_card_matches_cpu(cuda_device, monkeypatch):
         scale = max(p.grad.abs().max().item(), 1e-4 * top)
         torch.testing.assert_close(q.grad.cpu(), p.grad, rtol=1e-4,
                                    atol=1e-4 * scale, msg=name)
+
+
+# BatchNorm kernels vs plain versions on the card, per channel column. The
+# elementwise outputs (#5 y, #7 dx and dres) compute the same f32 formula in
+# the same order: f32 within 1e-5 of the column's largest |ref|; a bf16
+# output may sit one ulp away, 2^-7 of that. The reductions (#4 mean and
+# var, #6 dbeta and dgamma) sum the same f32 terms in another order: within
+# 1e-5 of the column's sum of |terms|.
+BN_ROWS = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
+BN_SUMS = 1e-5
+
+
+def _bn_close(out, ref, rtol):
+    limit = rtol * ref.float().abs().amax(dim=0, keepdim=True) + 1e-30
+    bad = (out.float() - ref.float()).abs() > limit
+    assert not bad.any(), (f"{int(bad.sum())} elements over the column "
+                           f"limit; max err "
+                           f"{(out.float() - ref.float()).abs().max():.3e}")
+
+
+def _sums_close(out, ref, abs_terms):
+    assert ((out - ref).abs() <= BN_SUMS * abs_terms).all(), \
+        (out - ref).abs().max().item()
+
+
+def _bn_inputs(device, dtype, m, c, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rows = [torch.randn((m, c), generator=gen, device=device).to(dtype)
+            for _ in range(4)]                       # x, res, dy, y
+    vecs = [torch.rand(c, generator=gen, device=device) + 0.5
+            for _ in range(4)]                       # inv, gamma, beta, -
+    return rows, vecs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [64, 2048])
+@pytest.mark.parametrize("m", [4099, 100003])
+def test_bn_kernels_match_plain(cuda_device, dtype, c, m):
+    """#4-#7 against their plain versions at a ragged M (no multiple of a
+    tile, a split or a pass), across the relu, residual and want_dres
+    variants."""
+    (x, res, dy, y), (inv, gamma, beta, _) = _bn_inputs(cuda_device, dtype,
+                                                        m, c, m + c)
+    x = x + 0.25
+    counts = (tbn.stats_launches, tbn.apply_launches,
+              tbn.bwd_reduce_launches, tbn.bwd_dx_launches)
+    mean, var = tbn.bn_stats(x)
+    ref_mean, ref_var = tbn.bn_stats_reference(x)
+    xf = x.float()
+    _sums_close(mean, ref_mean, xf.abs().mean(dim=0))
+    _sums_close(var, ref_var, 2 * (xf * xf).mean(dim=0))
+    for relu, r in ((True, None), (False, None), (True, res)):
+        out = tbn.bn_apply(x, mean, inv, gamma, beta, r, relu=relu)
+        ref = tbn.bn_apply_reference(x, mean, inv, gamma, beta, r, relu=relu)
+        assert out.dtype == dtype
+        _bn_close(out, ref, BN_ROWS[dtype])
+    for relu in (True, False):
+        db, dg = tbn.bn_bwd_reduce(dy, y, x, mean, inv, relu=relu)
+        ref_db, ref_dg = tbn.bn_bwd_reduce_reference(dy, y, x, mean, inv,
+                                                     relu=relu)
+        dz = torch.where(y.float() > 0, dy.float(), 0.0) if relu \
+            else dy.float()
+        _sums_close(db, ref_db, dz.abs().sum(dim=0))
+        _sums_close(dg, ref_dg,
+                    (dz * (xf - mean) * inv).abs().sum(dim=0))
+    for relu, want_dres in ((True, False), (False, False), (True, True)):
+        outs = tbn.bn_bwd_dx(dy, y, x, mean, inv, gamma, db, dg, relu=relu,
+                             want_dres=want_dres)
+        refs = tbn.bn_bwd_dx_reference(dy, y, x, mean, inv, gamma, db, dg,
+                                       relu=relu, want_dres=want_dres)
+        for out, ref in zip(outs, refs):
+            if ref is None:
+                assert out is None
+            else:
+                _bn_close(out, ref, BN_ROWS[dtype])
+    torch.cuda.synchronize()
+    assert (tbn.stats_launches, tbn.apply_launches, tbn.bwd_reduce_launches,
+            tbn.bwd_dx_launches) == (counts[0] + 1, counts[1] + 3,
+                                     counts[2] + 2, counts[3] + 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_reductions_repeat_bitwise(cuda_device, dtype):
+    """#4 and #6 sum without atomics in a fixed order: two runs agree bit
+    for bit."""
+    (x, _, dy, y), _ = _bn_inputs(cuda_device, dtype, 200003, 256, 7)
+    runs = []
+    for _ in range(2):
+        mean, var = tbn.bn_stats(x)
+        inv = torch.rsqrt(var + 1e-5)
+        runs.append((mean, var, *tbn.bn_bwd_reduce(dy, y, x, mean, inv,
+                                                   relu=True)))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["transposed", "strided", "c_not_mult_8",
+                                  "unaligned", "half"])
+def test_bn_wrapper_raises_rather_than_copying(cuda_device, case):
+    x = torch.randn(64, 128, device=cuda_device)
+    bad = {"transposed": lambda: x.t().contiguous().t(),
+           "strided": lambda: torch.randn(64, 256, device=cuda_device)[:,
+                                                                       :128],
+           "c_not_mult_8": lambda: x[:, :12].contiguous(),
+           "unaligned": lambda: torch.randn(64 * 128 + 1,
+                                            device=cuda_device)[1:].view(
+                                                64, 128),
+           "half": lambda: x.half()}[case]()
+    before = tbn.stats_launches
+    with pytest.raises((ValueError, TypeError)):
+        tbn.bn_stats(bad)
+    assert tbn.stats_launches == before
+
+
+@pytest.mark.cuda
+def test_resnet_step_on_card_matches_cpu(cuda_device, monkeypatch):
+    """One f32 forward and backward of resnet_nano with fused_bn through
+    the four kernels on the card (convolutions in full f32: TF32 off),
+    against the plain versions on the CPU: loss, every gradient and the
+    updated running buffers."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    torch.manual_seed(0)
+    cpu = tresnet.resnet_nano(num_classes=10, dtype=torch.float32,
+                              fused_bn=True).train()
+    card = tresnet.resnet_nano(num_classes=10, dtype=torch.float32,
+                               fused_bn=True).to(cuda_device).train()
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(3)
+    image = torch.from_numpy(rng.standard_normal((4, 32, 32, 3)).astype(
+        np.float32))
+    label = torch.from_numpy(rng.integers(0, 10, 4))
+    counts = (tbn.stats_launches, tbn.apply_launches,
+              tbn.bwd_reduce_launches, tbn.bwd_dx_launches)
+    losses = []
+    for model, dev in ((cpu, "cpu"), (card, cuda_device)):
+        loss = smoothed_softmax_ce(model(image.to(dev)), label.to(dev), 0.1)
+        loss.backward()
+        losses.append(loss.item())
+    torch.cuda.synchronize()
+    # Nine BatchNorm layers: the stem and four in each of the two blocks.
+    assert (tbn.stats_launches, tbn.apply_launches, tbn.bwd_reduce_launches,
+            tbn.bwd_dx_launches) == tuple(n + 9 for n in counts)
+    assert losses[1] == pytest.approx(losses[0], rel=1e-5)
+    top = max(p.grad.abs().max().item() for p in cpu.parameters())
+    for (name, p), q in zip(cpu.named_parameters(), card.parameters()):
+        scale = max(p.grad.abs().max().item(), 1e-4 * top)
+        torch.testing.assert_close(q.grad.cpu(), p.grad, rtol=1e-4,
+                                   atol=1e-4 * scale, msg=name)
+    for (name, a), b in zip(cpu.named_buffers(), card.buffers()):
+        torch.testing.assert_close(b.cpu(), a, rtol=1e-5, atol=1e-5,
+                                   msg=name)
