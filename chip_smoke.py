@@ -47,7 +47,22 @@ Run from the root of a checkout. Phases:
    a device-time profile of one step;
 12. one f32 step of ResNet-50 at batch 32 with ``fused_bn`` on and off, same
    weights and batch: loss, every gradient and every running buffer must
-   agree.
+   agree;
+13. the matmul+BatchNorm kernel grid: kernels #8-#10 against their plain
+   versions at the 16 (M, K, N, bn) variants of ResNet-50's 36 bottleneck
+   1x1 convolutions at batch 512 and one with the prologue but no ReLU, in
+   bf16 and f32, with device times, bounds, the plain versions' times and
+   ``torch.matmul`` of the bare product as the library yardstick; the sums
+   of #8 and #9 and the whole of #10 run twice and must repeat bit for bit;
+14. the ``--fused-block`` training path: ``python -m
+   distributeddeeplearning_tpu_torch.train --model resnet50 --batch-size
+   512 --synthetic --fused-block`` for a few steps; each matmul kernel must
+   be launched 36 x steps times and no other kernel of the port, every loss
+   finite and the first near ln(1000); images/s, peak memory and a
+   device-time profile of one step, and beside it, for the record, the
+   profile of one step of the unfused path;
+15. one f32 step of ResNet-50 at batch 32 with ``fused_block`` on and off,
+   same weights and batch, held as phase 12.
 
 Each phase prints its wall seconds. It prints a ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, "device": {...}}``. Any failed phase exits
@@ -133,18 +148,32 @@ RESNET_FIRST_LOSS_TOL = 0.3
 # 1). The gradients are held to the same step in float64 (unfused), each
 # relative to max(its largest |ref|, 1e-4 of the largest of all): the fused
 # f32 step's worst tensor, and its error over all gradients in the 2-norm,
-# may be at most FUSED_GRAD_FACTOR times the unfused f32 step's. Both f32
-# steps sit far from exact arithmetic: at this seed the unfused one is
-# 3.3e-2 off in its worst tensor and 5.7e-4 in the 2-norm (this phase on
-# an H100, PERF.md). Likely cause: a relu or max-pool decision that flips
-# on a last-bit change of the forward moves whole gradient elements, and
-# cancelling sums (a BatchNorm's dbeta; stage 4 has M = 1,568 rows) magnify
-# it. So two f32 orders of summation cannot agree within 1e-3 a tensor;
-# each is held against the f64 step instead.
+# may be at most FUSED_GRAD_FACTOR times the unfused f32 step's. The
+# unfused f32 step sits far from exact arithmetic: at this seed 3.3e-2 off
+# in its worst tensor and 5.7e-4 in the 2-norm (this phase on an H100,
+# PERF.md), and the JAX package's f32 step is as far from its f64 step on
+# the CPU (tests/torch_port_grad_gap.py). The cause is its BatchNorm
+# statistics summed in f32 and differenced as E[x^2] - mean^2: the
+# --fused-block step, whose sums run in double, is 1e-4 off in its worst
+# tensor. So two f32 orders of summation cannot agree within 1e-3 a
+# tensor; each is held against the f64 step instead. Phase 15 holds
+# fused_block to the same gate.
 FUSED_BATCH = 32
 FUSED_LOSS_TOL = 1e-4
 FUSED_GRAD_FACTOR = 2.0
 FUSED_BUFFER_TOL = 1e-5
+# Matmul+BatchNorm kernels vs plain versions, per element, fixed before the
+# first run of the grid: an f32 product differs only in summation order,
+# within L * 2^-22 * (|A| @ |B|) for a contracted length L (K for y, N for
+# dx, M for dw); a bf16 output may sit one more ulp of itself away; dx
+# carries its product's error times |gamma * inv|. The column sums (#8's
+# sum(y) and sum(y^2), #9's dbeta and dgamma) within 1e-5 of their sum of
+# |terms|; #8's are over y as stored, so where a bf16 y rounded the other
+# way they also carry that difference exactly (the column's sum of |y -
+# y_ref| and of |y^2 - y_ref^2|).
+FLBN_PROD_TOL = 2.0 ** -22
+FLBN_SUM_TOL = 1e-5
+RESNET_LINEAR_LAYERS = 36  # 16 blocks x (conv1, conv3), 4 downsamples
 
 
 def log(msg: str) -> None:
@@ -504,11 +533,15 @@ def phase_gpt2(kernels, failures, scratch: Path) -> dict:
 # Kernel classes of a step profile, by a substring of the kernel's name; the
 # first match wins.
 FLASH_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
+FLBN_KERNELS = ("flbn_fwd_kernel", "flbn_bwd_dx_kernel", "flbn_bwd_dw_kernel",
+                "flbn_column_finish_kernel", "flbn_dw_finish_kernel")
 BN_KERNELS = ("bn_stats_partial_kernel", "bn_apply_kernel",
               "bn_bwd_reduce_partial_kernel", "bn_bwd_dx_kernel",
               "bn_finish_kernel")
 KERNEL_CLASSES = (
     ("flash", FLASH_KERNELS),
+    # Before "bn": flbn_bwd_dx_kernel holds bn_bwd_dx_kernel.
+    ("linear_bn", FLBN_KERNELS),
     ("bn", BN_KERNELS),
     # cuDNN's convolutions (before "gemm": their names hold implicit_gemm).
     ("conv", ("conv", "fprop", "dgrad", "wgrad", "cudnn", "implicit")),
@@ -1064,18 +1097,42 @@ def phase_bn_grid(bn, failures) -> dict:
     return {"grid": grid, "step": step, "stem": layers[0]}
 
 
-def phase_resnet_train(kernels, failures) -> dict:
-    """The ResNet training path: ResNet-50 --fused-bn at batch 512 through
-    the CLI, then a device-time profile of one step of the same
-    configuration."""
+def resnet_step_profile(flags, focus) -> dict:
+    """A device-time profile of one ResNet-50 training step at batch 512
+    (bf16) with the CLI's ``flags``, from the seeded state."""
     import torch
 
-    from distributeddeeplearning_tpu_torch.ops import fused_batchnorm as bn
     from distributeddeeplearning_tpu_torch.train import cli as train_cli
     from distributeddeeplearning_tpu_torch.train import loop, steps
 
     argv = ["--model", "resnet50", "--batch-size", str(RESNET_BATCH),
-            "--synthetic", "--fused-bn", "--steps", str(RESNET_STEPS),
+            "--synthetic", "--steps", str(RESNET_STEPS), "--seed",
+            str(SEED), *flags]
+    config = train_cli.build_config(train_cli.parse_args(argv))
+    state, sched = loop.build_state(config, torch.device("cuda"))
+    train_step = steps.make_train_step(config, sched)
+    batch = loop.make_source(config, state.model, "cuda").batch(0)
+    profile = step_profile(f"resnet50 train step (bf16, "
+                           f"{' '.join(flags) or 'unfused'}, batch "
+                           f"{RESNET_BATCH})", lambda: train_step(state,
+                                                                  batch),
+                           grad=True, focus=focus)
+    del state, batch
+    torch.cuda.empty_cache()
+    return profile
+
+
+def phase_resnet_train(kernels, failures, flag, module, per_step,
+                       focus) -> dict:
+    """A ResNet training path: ResNet-50 with ``flag`` (--fused-bn or
+    --fused-block) at batch 512 through the CLI, where each kernel of
+    ``module`` must launch ``per_step`` times a step and no other kernel of
+    the port at all; then a device-time profile of one step of the same
+    configuration."""
+    import torch
+
+    argv = ["--model", "resnet50", "--batch-size", str(RESNET_BATCH),
+            "--synthetic", flag, "--steps", str(RESNET_STEPS),
             "--log-every", "1", "--seed", str(SEED)]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1086,12 +1143,12 @@ def phase_resnet_train(kernels, failures) -> dict:
     cli_s = time.perf_counter() - t0
     launches = read_counts(kernels)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    expected = {k["name"]: RESNET_BN_LAYERS * RESNET_STEPS
-                if k["module"] is bn else 0 for k in kernels}
+    expected = {k["name"]: per_step * RESNET_STEPS
+                if k["module"] is module else 0 for k in kernels}
     metrics = [x for x in lines if "step" in x]
     summary = lines[-1].get("summary", {})
     losses = [x["loss"] for x in metrics]
-    log(f"# resnet50 --fused-bn train: CLI {cli_s:.2f} s, launches "
+    log(f"# resnet50 {flag} train: CLI {cli_s:.2f} s, launches "
         f"{launches}, expected {expected}, losses {losses}, peak memory "
         f"{peak_gb:.2f} GB, summary {json.dumps(summary)}")
     if launches != expected:
@@ -1106,27 +1163,17 @@ def phase_resnet_train(kernels, failures) -> dict:
                         f"of ln {RESNET_CLASSES}")
     if not summary.get("examples_per_sec"):
         failures.append(f"ResNet summary without images/s: {summary}")
-
-    config = train_cli.build_config(train_cli.parse_args(argv))
-    state, sched = loop.build_state(config, torch.device("cuda"))
-    train_step = steps.make_train_step(config, sched)
-    batch = loop.make_source(config, state.model, "cuda").batch(0)
-    profile = step_profile("resnet50 train step (bf16, --fused-bn, batch "
-                           f"{RESNET_BATCH})", lambda: train_step(state,
-                                                                  batch),
-                           grad=True, focus=("bn", BN_KERNELS))
-    del state, batch
-    torch.cuda.empty_cache()
+    profile = resnet_step_profile([flag], focus)
     return {"launches": launches, "summary": summary, "profile": profile,
             "peak_memory_gb": peak_gb, "losses": losses}
 
 
-def phase_fused_vs_unfused_step(failures) -> None:
-    """One step of ResNet-50 at batch 32 in f32 with fused_bn on and off,
-    and unfused in f64 as the reference of exact arithmetic: the same
-    seeded weights and batch. The f32 losses and updated running buffers
-    are compared with each other, each f32 step's gradients with the f64
-    step's."""
+def phase_fused_vs_unfused_step(failures, flag: str) -> None:
+    """One step of ResNet-50 at batch 32 in f32 with ``flag`` (fused_bn or
+    fused_block) on and off, and unfused in f64 as the reference of exact
+    arithmetic: the same seeded weights and batch. The f32 losses and
+    updated running buffers are compared with each other, each f32 step's
+    gradients with the f64 step's."""
     import torch
 
     from distributeddeeplearning_tpu_torch.data.synthetic import (
@@ -1142,7 +1189,7 @@ def phase_fused_vs_unfused_step(failures) -> None:
     for name, dtype, fused in (("fused", torch.float32, True),
                                ("unfused", torch.float32, False),
                                ("f64", torch.float64, False)):
-        model = get_model("resnet50", dtype=dtype, fused_bn=fused).train()
+        model = get_model("resnet50", dtype=dtype, **{flag: fused}).train()
         if state is None:  # a copy: the forward updates the buffers
             state = {k: v.clone() for k, v in model.state_dict().items()}
         else:
@@ -1175,7 +1222,7 @@ def phase_fused_vs_unfused_step(failures) -> None:
                   / max(b.abs().max().item(), 1.0)
                   for n, b in bufs_u.items())
     loss_err = abs(loss_f - loss_u)
-    log(f"# resnet50 step, fused f32 vs unfused f32 vs unfused f64 (batch "
+    log(f"# resnet50 step, {flag} f32 vs unfused f32 vs unfused f64 (batch "
         f"{FUSED_BATCH}): losses {loss_f!r} / {loss_u!r}, loss err "
         f"{loss_err:.3e}, worst running-buffer err {buf_err:.3e}; gradients "
         f"against f64, worst tensor and 2-norm: fused {fused[0]:.3e} "
@@ -1185,11 +1232,217 @@ def phase_fused_vs_unfused_step(failures) -> None:
     if not (loss_err <= FUSED_LOSS_TOL and buf_err <= FUSED_BUFFER_TOL
             and fused[0] <= FUSED_GRAD_FACTOR * unfused[0]
             and fused[2] <= FUSED_GRAD_FACTOR * unfused[2]):
-        failures.append(f"fused vs unfused ResNet step: loss err {loss_err}, "
+        failures.append(f"{flag} vs unfused ResNet step: loss err {loss_err}, "
                         f"buffer err {buf_err}, gradient errs against f64 "
                         f"fused {fused}, unfused {unfused}")
     del results, grads_f, grads_u, grads_x
     torch.cuda.empty_cache()
+
+
+def resnet50_linear_layers() -> list[tuple]:
+    """(M, K, N, bn, relu) of each 1x1 convolution that --fused-block runs
+    through kernels #8-#10, at the training path's batch and image size, in
+    forward order: each bottleneck's conv1 (bn off), conv3 (bn and ReLU on)
+    and downsample (bn off), from the shapes of the model's blocks."""
+    import torch
+
+    from distributeddeeplearning_tpu_torch.models import resnet
+
+    with torch.device("meta"):
+        model = resnet.resnet50(dtype=torch.bfloat16)
+    side = RESNET_IMAGE // 4   # after the stem's stride and the max-pool's
+    layers = []
+    for name, block in model.named_children():
+        if not name.startswith("stage"):
+            continue
+        f, cin = block.conv1.weight.shape[:2]
+        out = -(-side // block.conv2.stride)
+        m_in, m_out = RESNET_BATCH * side * side, RESNET_BATCH * out * out
+        layers.append((m_in, cin, f, False, False))
+        layers.append((m_out, f, 4 * f, True, True))
+        if hasattr(block, "downsample_conv"):
+            layers.append((m_out, cin, 4 * f, False, False))
+        side = out
+    return layers
+
+
+def linear_bn_bound(kernel: str, m: int, k: int, n: int, bn: bool,
+                    dtype: str) -> tuple[float, str]:
+    """The least time of kernel #8, #9 or #10 at (M, K, N): 2 M K N FLOPs at
+    the dtype's peak, against its bytes over HBM, each input read once and
+    each output written once: (M, K), (N, K) and (M, N) operands in the
+    dtype, the f32 vectors (mu, inv, gamma, beta with ``bn``; sum and sumsq
+    or ds and dss; dbeta and dgamma with ``bn``). Returns (ms, bound_by)."""
+    e = 4 if dtype == "float32" else 2
+    vk = 4 * k * 4 if bn else 0
+    nbytes = {
+        "linear_bn_fwd": (m * k + n * k + m * n) * e + vk + 2 * n * 4,
+        "linear_bn_bwd_dx": ((2 * m * n + n * k + m * k + (m * k if bn else 0))
+                             * e + 2 * n * 4 + vk + (2 * k * 4 if bn else 0)),
+        "linear_bn_bwd_dw": (m * k + 2 * m * n + n * k) * e + vk + 2 * n * 4,
+    }[kernel]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2 * m * k * n / PEAK_FLOPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def prod_share(out, ref, abs_prod, length: int) -> tuple[float, float]:
+    """(max abs error, largest error as a share of its element's limit
+    length * FLBN_PROD_TOL * |A| @ |B|, plus one ulp of the element for a
+    bf16 output)."""
+    import torch
+
+    limit = length * FLBN_PROD_TOL * abs_prod
+    if ref.dtype == torch.bfloat16:
+        _, e = torch.frexp(ref.float())
+        limit = limit + torch.ldexp(torch.ones_like(limit), e - 8)
+    diff = (out.float() - ref.float()).abs()
+    return diff.max().item(), (diff / (limit + 1e-30)).max().item()
+
+
+def linear_bn_case(flbn, m, k, n, bn, relu, dtype, seed) -> list[dict]:
+    """One grid row: kernels #8-#10 at (M, K, N) against their plain
+    versions, with device times, bounds and the library yardstick (one
+    ``torch.matmul`` of the bare product, no prologue and no sums). The
+    reductions run twice and must agree bit for bit."""
+    import torch
+
+    dev = torch.device("cuda")
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    x = rand(m, k).to(tdt)
+    w = rand(n, k, scale=k ** -0.5).to(tdt)
+    vecs = ((rand(k, scale=0.3), rand(k).abs() + 0.5, rand(k).abs() + 0.5,
+             rand(k, scale=0.3)) if bn else (None,) * 4)
+    mu, inv, gamma, beta = vecs
+    dy, y = rand(m, n).to(tdt), rand(m, n).to(tdt)
+    ds, dss = rand(n, scale=0.1), rand(n, scale=0.1)
+    mode = dict(relu=relu, bn=bn)
+    errs, repeat = {}, {}
+
+    out, s, ss = flbn.linear_bn_fwd(x, *vecs, w, **mode)
+    _, s2, ss2 = flbn.linear_bn_fwd(x, *vecs, w, **mode)
+    repeat["linear_bn_fwd"] = torch.equal(s, s2) and torch.equal(ss, ss2)
+    ref, rs, rss = flbn.linear_bn_fwd_reference(x, *vecs, w, **mode)
+    a = flbn._prologue(x, *vecs, relu, bn).float()
+    of, rf = out.float(), ref.float()
+    errs["linear_bn_fwd"] = [
+        prod_share(out, ref, a.abs() @ w.float().abs().t(), k),
+        col_share(s, rs, FLBN_SUM_TOL * rf.abs().sum(dim=0)
+                  + (of - rf).abs().sum(dim=0) + 1e-30),
+        col_share(ss, rss, FLBN_SUM_TOL * (rf * rf).sum(dim=0)
+                  + (of * of - rf * rf).abs().sum(dim=0) + 1e-30)]
+    finite = bool(torch.isfinite(of).all())
+    del out, ref, of, rf, s2, ss2
+
+    dx, db, dg = flbn.linear_bn_bwd_dx(dy, y, ds, dss, w, x, *vecs, **mode)
+    again = flbn.linear_bn_bwd_dx(dy, y, ds, dss, w, x, *vecs, **mode)
+    repeat["linear_bn_bwd_dx"] = (torch.equal(db, again[1])
+                                  and torch.equal(dg, again[2])) if bn \
+        else None
+    rdx, rdb, rdg = flbn.linear_bn_bwd_dx_reference(dy, y, ds, dss, w, x,
+                                                    *vecs, **mode)
+    dyt = flbn._dy_total(dy, y, ds, dss).float()
+    prod = dyt.abs() @ w.float().abs()
+    if bn:
+        prod = prod * (gamma * inv).abs()
+    errs["linear_bn_bwd_dx"] = [prod_share(dx, rdx, prod, n)]
+    if bn:
+        xh = (x.float() - mu) * inv
+        da = dyt @ w.float()
+        dz = torch.where(xh * gamma + beta > 0, da, 0.0) if relu else da
+        errs["linear_bn_bwd_dx"] += [
+            col_share(db, rdb, FLBN_SUM_TOL * dz.abs().sum(dim=0) + 1e-30),
+            col_share(dg, rdg, FLBN_SUM_TOL * (dz * xh).abs().sum(dim=0)
+                      + 1e-30)]
+        del xh, da, dz
+    finite = finite and bool(torch.isfinite(dx.float()).all())
+    del dx, again, rdx, prod
+
+    dw = flbn.linear_bn_bwd_dw(x, *vecs, dy, y, ds, dss, **mode)
+    repeat["linear_bn_bwd_dw"] = torch.equal(
+        dw, flbn.linear_bn_bwd_dw(x, *vecs, dy, y, ds, dss, **mode))
+    rdw = flbn.linear_bn_bwd_dw_reference(x, *vecs, dy, y, ds, dss, **mode)
+    errs["linear_bn_bwd_dw"] = [prod_share(dw, rdw, dyt.abs().t() @ a.abs(),
+                                           m)]
+    finite = finite and bool(torch.isfinite(dw.float()).all())
+    del dw, rdw, dyt, a
+    torch.cuda.synchronize()
+
+    runs = {
+        "linear_bn_fwd": (
+            lambda: flbn.linear_bn_fwd(x, *vecs, w, **mode),
+            lambda: flbn.linear_bn_fwd_reference(x, *vecs, w, **mode),
+            lambda: torch.matmul(x, w.t())),
+        "linear_bn_bwd_dx": (
+            lambda: flbn.linear_bn_bwd_dx(dy, y, ds, dss, w, x, *vecs,
+                                          **mode),
+            lambda: flbn.linear_bn_bwd_dx_reference(dy, y, ds, dss, w, x,
+                                                    *vecs, **mode),
+            lambda: torch.matmul(dy, w)),
+        "linear_bn_bwd_dw": (
+            lambda: flbn.linear_bn_bwd_dw(x, *vecs, dy, y, ds, dss, **mode),
+            lambda: flbn.linear_bn_bwd_dw_reference(x, *vecs, dy, y, ds, dss,
+                                                    **mode),
+            lambda: torch.matmul(dy.t(), x)),
+    }
+    rows = []
+    for name, (kernel, plain, library) in runs.items():
+        share = max(e[1] for e in errs[name])
+        ok_repeat = repeat[name] is not False
+        bound, by = linear_bn_bound(name, m, k, n, bn, dtype)
+        rows.append({
+            "kernel": name, "m": m, "k": k, "n": n, "bn": bn, "relu": relu,
+            "dtype": dtype, "max_abs_err": max(e[0] for e in errs[name]),
+            "err_over_tol": share, "repeats": repeat[name],
+            "ok": finite and share <= 1.0 and ok_repeat,
+            "ms": device_ms(kernel), "plain_ms": device_ms(plain),
+            "library_ms": device_ms(library), "bound_ms": bound,
+            "bound_by": by})
+    return rows
+
+
+def phase_linear_bn_grid(flbn, failures) -> dict:
+    """Kernels #8-#10 over the distinct (M, K, N, bn, relu) variants of
+    ResNet-50's 36 bottleneck 1x1 convolutions at batch 512, plus conv3's
+    shape of stage 2 with the prologue but no ReLU, in bf16 (the training
+    path's dtype) and f32. Returns {dtype: {variant: rows by kernel}},
+    logs each row, and for bf16 each kernel's time summed over one step's
+    36 layers."""
+    import torch
+
+    layers = resnet50_linear_layers()
+    variants = sorted(set(layers), key=lambda v: -v[0] * v[1] * v[2])
+    conv3 = next(v for v in layers if v[1:] == (128, 512, True, True))
+    variants.append((conv3[0], 128, 512, True, False))
+    grid = {}
+    seed = SEED + 40
+    for dtype in ("bfloat16", "float32"):
+        grid[dtype] = {}
+        for v in variants:
+            seed += 1
+            rows = linear_bn_case(flbn, *v, dtype, seed)
+            grid[dtype][v] = {r["kernel"]: r for r in rows}
+            for r in rows:
+                log("# linear_bn_grid " + json.dumps(r))
+                if not r["ok"]:
+                    failures.append(f"{r['kernel']} disagrees with its plain "
+                                    f"version or does not repeat: {r}")
+            torch.cuda.empty_cache()
+    step = {}
+    for name in ("linear_bn_fwd", "linear_bn_bwd_dx", "linear_bn_bwd_dw"):
+        step[name] = {key: sum(grid["bfloat16"][v][name][key] for v in layers)
+                      for key in ("ms", "bound_ms", "plain_ms",
+                                  "library_ms")}
+    log("# linear_bn_grid one ResNet-50 step (36 layers, bf16, batch 512), "
+        "summed ms by kernel: " + json.dumps(step))
+    # The main row: stage 1's conv3, the prologue and ReLU on.
+    return {"grid": grid, "step": step, "main": layers[1]}
 
 
 def main() -> int:
@@ -1201,6 +1454,7 @@ def main() -> int:
         return 1
     from distributeddeeplearning_tpu_torch.ops import flash_attention as fa
     from distributeddeeplearning_tpu_torch.ops import fused_batchnorm as bn
+    from distributeddeeplearning_tpu_torch.ops import fused_linear_bn as flbn
 
     # Full-f32 references: no TF32 in the plain versions' products.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1208,6 +1462,7 @@ def main() -> int:
     csrc = "distributeddeeplearning_tpu_torch/csrc/"
     replaces = "distributeddeeplearning_tpu/ops/flash_attention.py:"
     replaces_bn = "distributeddeeplearning_tpu/ops/fused_batchnorm.py:"
+    replaces_lb = "distributeddeeplearning_tpu/ops/fused_linear_bn.py:"
     kernels = [
         {"name": "flash_attention_fwd", "counter": "launches",
          "module": fa, "build": fa.SOURCE, "replaces": replaces + "101"},
@@ -1223,6 +1478,14 @@ def main() -> int:
          "module": bn, "build": bn.SOURCE, "replaces": replaces_bn + "256"},
         {"name": "bn_bwd_dx", "counter": "bwd_dx_launches", "module": bn,
          "build": bn.SOURCE, "replaces": replaces_bn + "331"},
+        {"name": "linear_bn_fwd", "counter": "fwd_launches", "module": flbn,
+         "build": flbn.SOURCE, "replaces": replaces_lb + "65"},
+        {"name": "linear_bn_bwd_dx", "counter": "bwd_dx_launches",
+         "module": flbn, "build": flbn.SOURCE,
+         "replaces": replaces_lb + "136"},
+        {"name": "linear_bn_bwd_dw", "counter": "bwd_dw_launches",
+         "module": flbn, "build": flbn.SOURCE,
+         "replaces": replaces_lb + "216"},
     ]
     for k in kernels:
         k.update(route="cuda", source=csrc + k["build"])
@@ -1248,9 +1511,26 @@ def main() -> int:
         train = timed("gpt2_train", phase_train, kernels, failures)
         timed("flash_vs_dense_step", phase_flash_vs_dense_step, failures)
         bn_grid = timed("bn_grid", phase_bn_grid, bn, failures)
-        resnet = timed("resnet_train", phase_resnet_train, kernels, failures)
+        resnet = timed("resnet_train", phase_resnet_train, kernels, failures,
+                       "--fused-bn", bn, RESNET_BN_LAYERS,
+                       ("bn", BN_KERNELS))
         timed("fused_vs_unfused_step", phase_fused_vs_unfused_step,
-              failures)
+              failures, "fused_bn")
+        lb_grid = timed("linear_bn_grid", phase_linear_bn_grid, flbn,
+                        failures)
+        block = timed("resnet_fused_block_train", phase_resnet_train,
+                      kernels, failures, "--fused-block", flbn,
+                      RESNET_LINEAR_LAYERS, ("linear_bn", FLBN_KERNELS))
+        unfused = timed("resnet_unfused_step", resnet_step_profile, [],
+                        ("bn", BN_KERNELS))
+        log("# resnet50 A/B, one bf16 step at batch 512 (wall us, busy us): "
+            + json.dumps({name: [p.get("wall_us"), p.get("device_busy_us")]
+                          for name, p in (
+                              ("unfused", unfused),
+                              ("--fused-bn", resnet["profile"]),
+                              ("--fused-block", block["profile"]))}))
+        timed("fused_block_vs_unfused_step", phase_fused_vs_unfused_step,
+              failures, "fused_block")
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     log(f"# total: {time.perf_counter() - t_start:.2f} s")
@@ -1261,17 +1541,23 @@ def main() -> int:
 
     # Flash rows: the GPT-2 training shape, launches from its training run.
     # BatchNorm rows: the stem's shape (6,422,528 x 64, bf16, relu),
-    # launches from the ResNet-50 training run, and ``step_ms``: the kernel's
-    # time summed over one step's 53 layers.
+    # launches from the ResNet-50 --fused-bn run, and ``step_ms``: the
+    # kernel's time summed over one step's 53 layers. Matmul rows: stage 1's
+    # conv3 (1,605,632 x 64 -> 256, bf16, prologue and ReLU), launches from
+    # the --fused-block run, ``step_ms`` summed over its 36 layers.
     stem = bn_grid["grid"]["bfloat16"][bn_grid["stem"]]
+    conv3 = lb_grid["grid"]["bfloat16"][lb_grid["main"]]
     kernel_rows = []
     for k in kernels:
         if k["module"] is fa:
             row, launches = main_rows[k["name"]], train["launches"]
             extra = {"library_rate": row["library_rate"]}
-        else:
+        elif k["module"] is bn:
             row, launches = stem[k["name"]], resnet["launches"]
             extra = {"step_ms": bn_grid["step"][k["name"]]["ms"]}
+        else:
+            row, launches = conv3[k["name"]], block["launches"]
+            extra = {"step_ms": lb_grid["step"][k["name"]]["ms"]}
         kernel_rows.append({
             "name": k["name"], "route": k["route"], "source": k["source"],
             "replaces": k["replaces"], "launches": launches[k["name"]],

@@ -57,6 +57,8 @@ class TrainConfig:
     resume: bool = True
     attention_impl: Optional[str] = None  # None = the model's default
     fused_bn: bool = False        # BatchNorm through the CUDA kernels (CNNs)
+    fused_block: bool = False     # bottleneck 1x1 convs through the matmul+
+                                  # BatchNorm kernels (ResNet-50/101/152)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     optimizer: OptimizerConfig = dataclasses.field(
         default_factory=OptimizerConfig)

@@ -22,7 +22,11 @@ kernels.
 CUDA kernels of ``ops/fused_batchnorm.py`` in training. The default follows
 flax ``nn.BatchNorm`` plainly: float32 statistics, the same biased running
 update, the result cast to the compute dtype, then the residual add and the
-ReLU. Both create the same variables.
+ReLU. ``fused_block=True`` (bottleneck nets) builds every block as
+``models/fused_block.py``'s ``FusedBottleneckBlock``, whose 1x1
+convolutions carry the BatchNorm work through the matmul kernels of
+``ops/fused_linear_bn.py``; ``fused_bn`` then governs the stem alone. All
+create the same variables.
 """
 
 from __future__ import annotations
@@ -162,12 +166,18 @@ class ResNet(nn.Module):
                  fused_block: bool = False, fused_conv3: bool = False,
                  bn_axis_name: Optional[str] = None):
         super().__init__()
-        _later("fused_block", fused_block, "the --fused-block slice "
-               "(kernels #8-#10, ops/fused_linear_bn.py)")
         _later("fused_conv3", fused_conv3, "the --fused-conv3 slice "
                "(kernels #11-#13, ops/fused_conv_bn.py)")
         _later("bn_axis_name", bn_axis_name, "data parallelism "
                "(cross-replica BatchNorm statistics)")
+        if fused_block:
+            if block is not BottleneckBlock:
+                raise ValueError("fused_block requires bottleneck blocks "
+                                 "(resnet50/101/152); basic blocks have no "
+                                 "1x1 convolutions to fuse")
+            from distributeddeeplearning_tpu_torch.models.fused_block import (
+                FusedBottleneckBlock)
+            block = FusedBottleneckBlock
         self.dtype = dtype
         self.conv_stem = Conv(3, width, 7, 2, 3, dtype=dtype)
         self.bn_stem = _norm(fused_bn)(width, dtype=dtype)

@@ -1,2 +1,3 @@
-"""Kernel ops: the dense/flash attention dispatch and the flash kernels, and
-the fused BatchNorm kernels."""
+"""Kernel ops: the dense/flash attention dispatch and the flash kernels, the
+fused BatchNorm kernels, and the matmul+BatchNorm kernels of the fused
+bottleneck block."""

@@ -5,15 +5,17 @@ card.
         --batch-size 16 --seq-len 1024 --attn flash --synthetic --steps 100
     python -m distributeddeeplearning_tpu_torch.train --model resnet50 \
         --batch-size 512 --synthetic --fused-bn --steps 100
+    python -m distributeddeeplearning_tpu_torch.train --model resnet50 \
+        --batch-size 512 --synthetic --fused-block --steps 100
 
 The counterpart of the root ``train.py`` for these models, with its flags
 where they apply. Data is synthetic token ids or images made on the device;
 weights start random from ``--seed``. Prints one JSON metric line per log
 step and a final ``{"summary": ...}`` line. Runs on the GPU unless
 ``--device cpu`` is given. Flags of later slices (data parallelism and
-SyncBN, accumulation, mixed precision with loss scaling, the fused
-conv/matmul BatchNorm kernels, model parallelism, ZeRO) raise instead of
-being ignored.
+SyncBN, accumulation, mixed precision with loss scaling, the fused 3x3
+conv+BatchNorm kernels, model parallelism, ZeRO) raise instead of being
+ignored.
 """
 
 from __future__ import annotations
@@ -35,8 +37,6 @@ _LATER = (
     ("pp", 1, "pipeline parallelism"),
     ("precision", None, "mixed precision with dynamic loss scaling"),
     ("optimizer_sharding", None, "ZeRO optimizer sharding"),
-    ("fused_block", False, "the --fused-block slice (the matmul+BatchNorm "
-     "kernels #8-#10)"),
     ("fused_conv3", False, "the --fused-conv3 slice (the 3x3 conv+BatchNorm "
      "kernels #11-#13)"),
     ("sync_bn", False, "data parallelism (cross-replica BatchNorm "
@@ -61,6 +61,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--fused-bn", action="store_true",
                    help="BatchNorm(+residual)+ReLU through the CUDA kernels "
                         "(ops/fused_batchnorm.py); image models")
+    p.add_argument("--fused-block", action="store_true",
+                   help="bottleneck 1x1 convolutions with their BatchNorm "
+                        "work through the CUDA matmul kernels "
+                        "(ops/fused_linear_bn.py); ResNet-50/101/152")
     p.add_argument("--attn", default=None, choices=["dense", "flash"],
                    help="attention impl: dense, or the flash kernels")
     p.add_argument("--optimizer", default=None,
@@ -106,11 +110,14 @@ def build_config(args: argparse.Namespace) -> TrainConfig:
         if value is not None and value <= 0:
             raise SystemExit(f"--{flag.replace('_', '-')} must be positive "
                              f"(got {value})")
-    if args.fused_bn and model_spec(args.model).input_kind != "image":
-        raise SystemExit(f"--fused-bn: {args.model} has no BatchNorm; the "
-                         f"fused kernels serve the image models (ResNet)")
+    for flag in ("fused_bn", "fused_block"):
+        if getattr(args, flag) and \
+                model_spec(args.model).input_kind != "image":
+            raise SystemExit(f"--{flag.replace('_', '-')}: {args.model} has "
+                             f"no BatchNorm; the fused kernels serve the "
+                             f"image models (ResNet)")
     cfg = TrainConfig(model=args.model, total_steps=args.steps,
-                      fused_bn=args.fused_bn)
+                      fused_bn=args.fused_bn, fused_block=args.fused_block)
     updates = {k: v for k, v in (
         ("global_batch_size", args.batch_size), ("dtype", args.dtype),
         ("seed", args.seed), ("log_every", args.log_every),

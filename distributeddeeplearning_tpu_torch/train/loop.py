@@ -39,7 +39,8 @@ def build_state(config: TrainConfig, device
     ``config.total_steps``."""
     if _is_image(config):
         kw: dict[str, Any] = {"num_classes": config.data.num_classes,
-                              "fused_bn": config.fused_bn}
+                              "fused_bn": config.fused_bn,
+                              "fused_block": config.fused_block}
     else:
         kw = {"seq_len": config.data.seq_len}
         if config.attention_impl:

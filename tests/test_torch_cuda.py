@@ -2,7 +2,9 @@
 the flash forward (with and without dropout), the dq and dk/dv backward
 kernels, and a tiny GPT's training step on the card against the CPU; the
 four BatchNorm kernels, and a ``resnet_nano`` training step through them
-against the plain path on the CPU.
+against the plain path on the CPU; the three matmul+BatchNorm kernels, and
+a ``resnet_nano`` ``fused_block`` training step through them against the
+CPU.
 
 Every test here needs an NVIDIA GPU and skips without one. The file imports
 nothing of JAX, so it runs on a machine that has only PyTorch:
@@ -19,6 +21,7 @@ from distributeddeeplearning_tpu_torch.models import gpt as tgpt
 from distributeddeeplearning_tpu_torch.models import resnet as tresnet
 from distributeddeeplearning_tpu_torch.ops import flash_attention as tfa
 from distributeddeeplearning_tpu_torch.ops import fused_batchnorm as tbn
+from distributeddeeplearning_tpu_torch.ops import fused_linear_bn as tflb
 from distributeddeeplearning_tpu_torch.train.losses import (
     causal_lm_loss, smoothed_softmax_ce)
 
@@ -274,8 +277,8 @@ def _bn_close(out, ref, rtol):
                            f"{(out.float() - ref.float()).abs().max():.3e}")
 
 
-def _sums_close(out, ref, abs_terms):
-    assert ((out - ref).abs() <= BN_SUMS * abs_terms).all(), \
+def _sums_close(out, ref, abs_terms, extra=0.0):
+    assert ((out - ref).abs() <= BN_SUMS * abs_terms + extra).all(), \
         (out - ref).abs().max().item()
 
 
@@ -400,6 +403,179 @@ def test_resnet_step_on_card_matches_cpu(cuda_device, monkeypatch):
     # Nine BatchNorm layers: the stem and four in each of the two blocks.
     assert (tbn.stats_launches, tbn.apply_launches, tbn.bwd_reduce_launches,
             tbn.bwd_dx_launches) == tuple(n + 9 for n in counts)
+    assert losses[1] == pytest.approx(losses[0], rel=1e-5)
+    top = max(p.grad.abs().max().item() for p in cpu.parameters())
+    for (name, p), q in zip(cpu.named_parameters(), card.parameters()):
+        scale = max(p.grad.abs().max().item(), 1e-4 * top)
+        torch.testing.assert_close(q.grad.cpu(), p.grad, rtol=1e-4,
+                                   atol=1e-4 * scale, msg=name)
+    for (name, a), b in zip(cpu.named_buffers(), card.buffers()):
+        torch.testing.assert_close(b.cpu(), a, rtol=1e-5, atol=1e-5,
+                                   msg=name)
+
+
+# The matmul+BatchNorm kernels against their plain versions, per element:
+# an f32 product differs only in summation order, within L * 2^-22 *
+# (|A| @ |B|) for a contracted length L (K for y, N for dx, M for dw); a
+# bf16 output may sit one more ulp of itself away. dx carries its product's
+# error times |gamma * inv|. The column sums within 1e-5 of their sum of
+# |terms|; the forward's sums are over y as stored, so where a bf16 y
+# rounded the other way they also carry that difference (the column's sum
+# of |y - y_ref| and of |y^2 - y_ref^2|).
+FLBN_VARIANTS = {"plain": (False, False), "bn": (True, False),
+                 "bn_relu": (True, True)}
+
+
+def _flbn_close(out, ref, abs_prod, length):
+    limit = length * 2.0 ** -22 * abs_prod
+    if ref.dtype == torch.bfloat16:
+        _, e = torch.frexp(ref.float())
+        limit = limit + torch.ldexp(torch.ones_like(limit), e - 8)
+    err = (out.float() - ref.float()).abs()
+    assert (err <= limit).all(), (f"{int((err > limit).sum())} elements "
+                                  f"over the limit; max err/limit "
+                                  f"{(err / limit).max():.3e}")
+
+
+def _flbn_inputs(device, dtype, m, k, n, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=device) * scale
+
+    x = rand(m, k).to(dtype)
+    w = rand(n, k, scale=k ** -0.5).to(dtype)
+    vecs = (rand(k, scale=0.3), rand(k).abs() + 0.5, rand(k).abs() + 0.5,
+            rand(k, scale=0.3))                     # mu, inv, gamma, beta
+    dy, y = rand(m, n).to(dtype), rand(m, n).to(dtype)
+    return x, w, vecs, dy, y, rand(n, scale=0.1), rand(n, scale=0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", list(FLBN_VARIANTS))
+@pytest.mark.parametrize("m,k,n", [(4099, 64, 256), (200003, 256, 64),
+                                   (129, 24, 40), (1000, 1024, 2048)])
+def test_linear_bn_kernels_match_plain(cuda_device, dtype, variant, m, k,
+                                       n):
+    """#8-#10 against their plain versions at ragged M (no multiple of a
+    tile or a split), K and N below, at and above a tile, and a contracted
+    length that is no multiple of a step."""
+    bn, relu = FLBN_VARIANTS[variant]
+    x, w, vecs, dy, y, ds, dss = _flbn_inputs(cuda_device, dtype, m, k, n,
+                                              m + k + n)
+    mu, inv, gamma, beta = vecs
+    counts = (tflb.fwd_launches, tflb.bwd_dx_launches, tflb.bwd_dw_launches)
+    a = tflb._prologue(x, *vecs, relu, bn).float().abs()
+    dyt = tflb._dy_total(dy, y, ds, dss).float().abs()
+
+    out, s, ss = tflb.linear_bn_fwd(x, *vecs, w, relu=relu, bn=bn)
+    ref, rs, rss = tflb.linear_bn_fwd_reference(x, *vecs, w, relu=relu,
+                                                bn=bn)
+    assert out.dtype == dtype
+    _flbn_close(out, ref, a @ w.float().abs().t(), k)
+    rf, of = ref.float(), out.float()
+    _sums_close(s, rs, rf.abs().sum(dim=0),
+                (of - rf).abs().sum(dim=0))
+    _sums_close(ss, rss, (rf * rf).sum(dim=0),
+                (of * of - rf * rf).abs().sum(dim=0))
+
+    dx, db, dg = tflb.linear_bn_bwd_dx(dy, y, ds, dss, w, x, *vecs,
+                                       relu=relu, bn=bn)
+    rdx, rdb, rdg = tflb.linear_bn_bwd_dx_reference(dy, y, ds, dss, w, x,
+                                                    *vecs, relu=relu, bn=bn)
+    prod = dyt @ w.float().abs()
+    _flbn_close(dx, rdx, prod * (gamma * inv).abs() if bn else prod, n)
+    if bn:
+        xh = (x.float() - mu) * inv
+        da = tflb._dy_total(dy, y, ds, dss).float() @ w.float()
+        dz = torch.where(xh * gamma + beta > 0, da, 0.0) if relu else da
+        _sums_close(db, rdb, dz.abs().sum(dim=0))
+        _sums_close(dg, rdg, (dz * xh).abs().sum(dim=0))
+    else:
+        assert db is None and dg is None
+
+    dw = tflb.linear_bn_bwd_dw(x, *vecs, dy, y, ds, dss, relu=relu, bn=bn)
+    rdw = tflb.linear_bn_bwd_dw_reference(x, *vecs, dy, y, ds, dss,
+                                          relu=relu, bn=bn)
+    assert dw.shape == (n, k) and dw.dtype == dtype
+    _flbn_close(dw, rdw, dyt.t() @ a, m)
+    torch.cuda.synchronize()
+    assert (tflb.fwd_launches, tflb.bwd_dx_launches,
+            tflb.bwd_dw_launches) == tuple(c + 1 for c in counts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_linear_bn_reductions_repeat_bitwise(cuda_device, dtype):
+    """The sums of #8 and #9 and the whole of #10 reduce over M without
+    atomics in a fixed order: two runs agree bit for bit."""
+    x, w, vecs, dy, y, ds, dss = _flbn_inputs(cuda_device, dtype, 300007,
+                                              128, 512, 5)
+    runs = []
+    for _ in range(2):
+        _, s, ss = tflb.linear_bn_fwd(x, *vecs, w, relu=True, bn=True)
+        _, db, dg = tflb.linear_bn_bwd_dx(dy, y, ds, dss, w, x, *vecs,
+                                          relu=True, bn=True)
+        dw = tflb.linear_bn_bwd_dw(x, *vecs, dy, y, ds, dss, relu=True,
+                                   bn=True)
+        runs.append((s, ss, db, dg, dw))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["transposed", "strided", "k_not_mult_8",
+                                  "unaligned", "half"])
+def test_linear_bn_wrapper_raises_rather_than_copying(cuda_device, case):
+    x = torch.randn(64, 128, device=cuda_device)
+    w = torch.randn(64, 128, device=cuda_device)
+    bad = {"transposed": lambda: x.t().contiguous().t(),
+           "strided": lambda: torch.randn(64, 256, device=cuda_device)[:,
+                                                                       :128],
+           "k_not_mult_8": lambda: x[:, :12].contiguous(),
+           "unaligned": lambda: torch.randn(64 * 128 + 1,
+                                            device=cuda_device)[1:].view(
+                                                64, 128),
+           "half": lambda: x.half()}[case]()
+    wb = w[:, :12].contiguous() if case == "k_not_mult_8" else (
+        w.half() if case == "half" else w)
+    before = tflb.fwd_launches
+    with pytest.raises((ValueError, TypeError)):
+        tflb.linear_bn_fwd(bad, None, None, None, None, wb, relu=False,
+                           bn=False)
+    assert tflb.fwd_launches == before
+
+
+@pytest.mark.cuda
+def test_resnet_fused_block_step_on_card_matches_cpu(cuda_device,
+                                                     monkeypatch):
+    """One f32 forward and backward of resnet_nano with fused_block
+    through kernels #8-#10 on the card (convolutions in full f32: TF32
+    off), against the plain versions on the CPU: loss, every gradient and
+    the updated running buffers."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    torch.manual_seed(0)
+    cpu = tresnet.resnet_nano(num_classes=10, dtype=torch.float32,
+                              fused_block=True).train()
+    card = tresnet.resnet_nano(num_classes=10, dtype=torch.float32,
+                               fused_block=True).to(cuda_device).train()
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(4)
+    image = torch.from_numpy(rng.standard_normal((4, 32, 32, 3)).astype(
+        np.float32))
+    label = torch.from_numpy(rng.integers(0, 10, 4))
+    counts = (tflb.fwd_launches, tflb.bwd_dx_launches, tflb.bwd_dw_launches)
+    losses = []
+    for model, dev in ((cpu, "cpu"), (card, cuda_device)):
+        loss = smoothed_softmax_ce(model(image.to(dev)), label.to(dev), 0.1)
+        loss.backward()
+        losses.append(loss.item())
+    torch.cuda.synchronize()
+    # Two blocks, each with conv1, conv3 and a downsample.
+    assert (tflb.fwd_launches, tflb.bwd_dx_launches,
+            tflb.bwd_dw_launches) == tuple(c + 6 for c in counts)
     assert losses[1] == pytest.approx(losses[0], rel=1e-5)
     top = max(p.grad.abs().max().item() for p in cpu.parameters())
     for (name, p), q in zip(cpu.named_parameters(), card.parameters()):

@@ -4,9 +4,11 @@ against the JAX package's, on the CPU.
 Two-stage, width-8 nets (one Bottleneck or Basic block a stage) at 16x16,
 batch 4, f32, with the same numpy-drawn params and batch_stats on both
 sides, carried across by ``utils/weights.py``. The port runs with
-``fused_bn`` on (the kernels' plain versions) and off; both are held to the
-JAX model without fusion, which the JAX package's own test shows equal to
-its fused one. Compared: the train-mode logits, the updated batch_stats,
+``fused_bn`` on (the kernels' plain versions), off, and with
+``fused_block`` (the matmul kernels' plain versions; bottleneck nets only,
+a basic-block net raises); all are held to the JAX model without fusion,
+which the JAX package's own tests show equal to its fused ones. Compared:
+the train-mode logits, the updated batch_stats,
 the label-smoothed loss and every gradient (against one jitted
 ``value_and_grad`` a block type), and the eval-mode logits. Also: the
 weight round trip with batch_stats, and the registry's parameter counts.
@@ -105,16 +107,23 @@ def jax_ref(request) -> dict:
                 kind=kind, variables=variables, image=image, label=label)
 
 
-def port_model(kind: str, fused: bool, variables: dict):
+def port_model(kind: str, fused, variables: dict):
+    """``fused``: True (``fused_bn``), False, or "block" (``fused_block``)."""
     model = resnet.ResNet([1, 1], BLOCKS[kind][1], num_classes=CLASSES,
-                          width=8, dtype=torch.float32, fused_bn=fused)
+                          width=8, dtype=torch.float32, fused_bn=fused is True,
+                          fused_block=fused == "block")
     model.load_state_dict(params_from_flax(variables), strict=True)
     return model
 
 
-@pytest.mark.parametrize("fused", [True, False], ids=["fused", "unfused"])
+@pytest.mark.parametrize("fused", [True, False, "block"],
+                         ids=["fused", "unfused", "fused_block"])
 def test_resnet_matches_jax(jax_ref, fused):
     ref = jax_ref
+    if fused == "block" and ref["kind"] == "basic":
+        with pytest.raises(ValueError, match="bottleneck"):
+            port_model(ref["kind"], fused, ref["variables"])
+        return
     model = port_model(ref["kind"], fused, ref["variables"]).train()
     logits = model(torch.from_numpy(ref["image"]))
     loss = smoothed_softmax_ce(logits, torch.from_numpy(ref["label"]), 0.1)
@@ -175,7 +184,6 @@ def test_registry_parameter_counts_match_jax():
 
 
 def test_later_slice_options_raise():
-    for kw in ({"fused_block": True}, {"fused_conv3": True},
-               {"bn_axis_name": "data"}):
+    for kw in ({"fused_conv3": True}, {"bn_axis_name": "data"}):
         with pytest.raises(NotImplementedError):
             resnet.resnet_nano(**kw)

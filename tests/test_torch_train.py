@@ -249,6 +249,26 @@ def test_resnet_cli_on_cpu(capsys):
     assert "tokens_per_sec" not in summary
 
 
+def test_resnet_fused_block_cli_on_cpu(capsys):
+    """--fused-block: resnet_nano's bottlenecks through the matmul kernels'
+    plain versions, with the stem's BatchNorm plain."""
+    tcli.main(["--model", "resnet_nano", "--fused-block", "--image-size",
+               "16", "--device", "cpu", "--synthetic", "--steps", "3",
+               "--batch-size", "4", "--num-classes", "10", "--log-every",
+               "1", "--warmup-steps", "1"])
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert [x["step"] for x in lines[:-1]] == [1, 2, 3]
+    assert all(np.isfinite(x["loss"]) for x in lines[:-1])
+    assert abs(lines[0]["loss"] - np.log(10)) < 0.5
+    assert lines[-1]["summary"]["final_step"] == 3
+
+
+def test_cli_refuses_fused_block_without_batchnorm():
+    with pytest.raises(SystemExit, match="no BatchNorm"):
+        tcli.main(["--model", "gpt_nano", "--device", "cpu", "--steps", "1",
+                   "--fused-block"])
+
+
 def test_cli_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -263,7 +283,8 @@ def test_resnet_cli_without_a_card_raises(monkeypatch):
 
 @pytest.mark.parametrize("argv", [["--dp", "2"], ["--accum", "4"],
                                   ["--precision", "mixed"],
-                                  ["--fused-block"], ["--tp", "2"],
+                                  ["--fused-block", "--fused-conv3"],
+                                  ["--tp", "2"],
                                   ["--optimizer", "lars"], ["--fused-conv3"],
                                   ["--sync-bn"]])
 def test_cli_refuses_flags_of_later_slices(argv):
