@@ -152,26 +152,30 @@ RESNET_FIRST_LOSS_TOL = 0.3
 # unfused f32 step sits far from exact arithmetic: at this seed 3.3e-2 off
 # in its worst tensor and 5.7e-4 in the 2-norm (this phase on an H100,
 # PERF.md), and the JAX package's f32 step is as far from its f64 step on
-# the CPU (tests/torch_port_grad_gap.py). The cause is its BatchNorm
-# statistics summed in f32 and differenced as E[x^2] - mean^2: the
-# --fused-block step, whose sums run in double, is 1e-4 off in its worst
-# tensor. So two f32 orders of summation cannot agree within 1e-3 a
-# tensor; each is held against the f64 step instead. Phase 15 holds
-# fused_block to the same gate.
+# the CPU (tests/test_torch_grad_gap.py). The cause is its BatchNorm
+# statistics summed in f32 and differenced as E[x^2] - mean^2. So two f32
+# orders of summation cannot agree within 1e-3 a tensor; each is held
+# against the f64 step instead. The --fused-block step takes the
+# statistics of its 1x1 convolutions in double and reads 9.8e-5 (worst)
+# and 4.3e-6 (2-norm) on an H100: it is held to the f64 step directly,
+# within FUSED_BLOCK_GRAD_WORST and FUSED_BLOCK_GRAD_NORM.
 FUSED_BATCH = 32
 FUSED_LOSS_TOL = 1e-4
 FUSED_GRAD_FACTOR = 2.0
+FUSED_BLOCK_GRAD_WORST = 1e-3
+FUSED_BLOCK_GRAD_NORM = 1e-4
 FUSED_BUFFER_TOL = 1e-5
-# Matmul+BatchNorm kernels vs plain versions, per element, fixed before the
-# first run of the grid: an f32 product differs only in summation order,
-# within L * 2^-22 * (|A| @ |B|) for a contracted length L (K for y, N for
-# dx, M for dw); a bf16 output may sit one more ulp of itself away; dx
-# carries its product's error times |gamma * inv|. The column sums (#8's
-# sum(y) and sum(y^2), #9's dbeta and dgamma) within 1e-5 of their sum of
-# |terms|; #8's are over y as stored, so where a bf16 y rounded the other
-# way they also carry that difference exactly (the column's sum of |y -
-# y_ref| and of |y^2 - y_ref^2|).
-FLBN_PROD_TOL = 2.0 ** -22
+# Matmul+BatchNorm kernels vs plain versions. The products (y, dx, dw) per
+# element within FLBN_PROD_TOL of the largest |ref| of the element's column,
+# as the BatchNorm grid holds its outputs; a bf16 output may sit one more
+# ulp of itself away. On an H100 the f32 grid's errors reach 4.1e-6 of
+# that column maximum, while a dw that lacks one of its chunks of M is off
+# by at least 2.5e-3 of it (the grid checks that the limit sees it). The
+# column sums (#8's sum(y) and sum(y^2), #9's dbeta and dgamma) within
+# 1e-5 of their sum of |terms|; #8's are over y as stored, so where a bf16
+# y rounded the other way they also carry that difference exactly (the
+# column's sum of |y - y_ref| and of |y^2 - y_ref^2|).
+FLBN_PROD_TOL = 1e-5
 FLBN_SUM_TOL = 1e-5
 RESNET_LINEAR_LAYERS = 36  # 16 blocks x (conv1, conv3), 4 downsamples
 
@@ -1173,7 +1177,8 @@ def phase_fused_vs_unfused_step(failures, flag: str) -> None:
     fused_block) on and off, and unfused in f64 as the reference of exact
     arithmetic: the same seeded weights and batch. The f32 losses and
     updated running buffers are compared with each other, each f32 step's
-    gradients with the f64 step's."""
+    gradients with the f64 step's: fused_bn's relative to the unfused f32
+    step's distance, fused_block's directly."""
     import torch
 
     from distributeddeeplearning_tpu_torch.data.synthetic import (
@@ -1229,9 +1234,14 @@ def phase_fused_vs_unfused_step(failures, flag: str) -> None:
         f"({fused[1]}), {fused[2]:.3e}; unfused {unfused[0]:.3e} "
         f"({unfused[1]}), {unfused[2]:.3e}; fused against unfused "
         f"{between[0]:.3e} ({between[1]}), {between[2]:.3e}")
+    if flag == "fused_block":
+        grads_ok = (fused[0] <= FUSED_BLOCK_GRAD_WORST
+                    and fused[2] <= FUSED_BLOCK_GRAD_NORM)
+    else:
+        grads_ok = (fused[0] <= FUSED_GRAD_FACTOR * unfused[0]
+                    and fused[2] <= FUSED_GRAD_FACTOR * unfused[2])
     if not (loss_err <= FUSED_LOSS_TOL and buf_err <= FUSED_BUFFER_TOL
-            and fused[0] <= FUSED_GRAD_FACTOR * unfused[0]
-            and fused[2] <= FUSED_GRAD_FACTOR * unfused[2]):
+            and grads_ok):
         failures.append(f"{flag} vs unfused ResNet step: loss err {loss_err}, "
                         f"buffer err {buf_err}, gradient errs against f64 "
                         f"fused {fused}, unfused {unfused}")
@@ -1287,17 +1297,19 @@ def linear_bn_bound(kernel: str, m: int, k: int, n: int, bn: bool,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def prod_share(out, ref, abs_prod, length: int) -> tuple[float, float]:
-    """(max abs error, largest error as a share of its element's limit
-    length * FLBN_PROD_TOL * |A| @ |B|, plus one ulp of the element for a
-    bf16 output)."""
+def prod_share(out, ref) -> tuple[float, float]:
+    """(max abs error, largest error as a share of its element's limit:
+    FLBN_PROD_TOL of its column's largest |ref|, plus one ulp of the
+    element for a bf16 output)."""
     import torch
 
-    limit = length * FLBN_PROD_TOL * abs_prod
+    r = ref.float()
+    limit = FLBN_PROD_TOL * r.abs().amax(dim=0)
     if ref.dtype == torch.bfloat16:
-        _, e = torch.frexp(ref.float())
-        limit = limit + torch.ldexp(torch.ones_like(limit), e - 8)
-    diff = (out.float() - ref.float()).abs()
+        _, e = torch.frexp(r)
+        limit = limit + torch.where(
+            r != 0, torch.ldexp(torch.ones_like(r), e - 8), 0.0)
+    diff = (out.float() - r).abs()
     return diff.max().item(), (diff / (limit + 1e-30)).max().item()
 
 
@@ -1329,10 +1341,9 @@ def linear_bn_case(flbn, m, k, n, bn, relu, dtype, seed) -> list[dict]:
     _, s2, ss2 = flbn.linear_bn_fwd(x, *vecs, w, **mode)
     repeat["linear_bn_fwd"] = torch.equal(s, s2) and torch.equal(ss, ss2)
     ref, rs, rss = flbn.linear_bn_fwd_reference(x, *vecs, w, **mode)
-    a = flbn._prologue(x, *vecs, relu, bn).float()
     of, rf = out.float(), ref.float()
     errs["linear_bn_fwd"] = [
-        prod_share(out, ref, a.abs() @ w.float().abs().t(), k),
+        prod_share(out, ref),
         col_share(s, rs, FLBN_SUM_TOL * rf.abs().sum(dim=0)
                   + (of - rf).abs().sum(dim=0) + 1e-30),
         col_share(ss, rss, FLBN_SUM_TOL * (rf * rf).sum(dim=0)
@@ -1348,10 +1359,7 @@ def linear_bn_case(flbn, m, k, n, bn, relu, dtype, seed) -> list[dict]:
     rdx, rdb, rdg = flbn.linear_bn_bwd_dx_reference(dy, y, ds, dss, w, x,
                                                     *vecs, **mode)
     dyt = flbn._dy_total(dy, y, ds, dss).float()
-    prod = dyt.abs() @ w.float().abs()
-    if bn:
-        prod = prod * (gamma * inv).abs()
-    errs["linear_bn_bwd_dx"] = [prod_share(dx, rdx, prod, n)]
+    errs["linear_bn_bwd_dx"] = [prod_share(dx, rdx)]
     if bn:
         xh = (x.float() - mu) * inv
         da = dyt @ w.float()
@@ -1362,16 +1370,22 @@ def linear_bn_case(flbn, m, k, n, bn, relu, dtype, seed) -> list[dict]:
                       + 1e-30)]
         del xh, da, dz
     finite = finite and bool(torch.isfinite(dx.float()).all())
-    del dx, again, rdx, prod
+    del dx, again, rdx
 
     dw = flbn.linear_bn_bwd_dw(x, *vecs, dy, y, ds, dss, **mode)
     repeat["linear_bn_bwd_dw"] = torch.equal(
         dw, flbn.linear_bn_bwd_dw(x, *vecs, dy, y, ds, dss, **mode))
     rdw = flbn.linear_bn_bwd_dw_reference(x, *vecs, dy, y, ds, dss, **mode)
-    errs["linear_bn_bwd_dw"] = [prod_share(dw, rdw, dyt.abs().t() @ a.abs(),
-                                           m)]
+    errs["linear_bn_bwd_dw"] = [prod_share(dw, rdw)]
+    # The limit must see a dw that lacks one of the kernel's chunks of M:
+    # this one lacks the middle chunk's rows.
+    chunk = -(-m // flbn.dw_splits(m, k, n, tdt))
+    r0 = min(m // 2, m - chunk)
+    a = flbn._prologue(x[r0:r0 + chunk], *vecs, relu, bn).float()
+    lost = dyt[r0:r0 + chunk].t() @ a
+    dropped = prod_share((dw.float() - lost).to(tdt), rdw)[1]
     finite = finite and bool(torch.isfinite(dw.float()).all())
-    del dw, rdw, dyt, a
+    del dw, rdw, dyt, a, lost
     torch.cuda.synchronize()
 
     runs = {
@@ -1395,12 +1409,15 @@ def linear_bn_case(flbn, m, k, n, bn, relu, dtype, seed) -> list[dict]:
     for name, (kernel, plain, library) in runs.items():
         share = max(e[1] for e in errs[name])
         ok_repeat = repeat[name] is not False
+        sees_drop = name != "linear_bn_bwd_dw" or dropped > 1.0
         bound, by = linear_bn_bound(name, m, k, n, bn, dtype)
         rows.append({
             "kernel": name, "m": m, "k": k, "n": n, "bn": bn, "relu": relu,
             "dtype": dtype, "max_abs_err": max(e[0] for e in errs[name]),
             "err_over_tol": share, "repeats": repeat[name],
-            "ok": finite and share <= 1.0 and ok_repeat,
+            **({"dropped_chunk_over_tol": dropped}
+               if name == "linear_bn_bwd_dw" else {}),
+            "ok": finite and share <= 1.0 and ok_repeat and sees_drop,
             "ms": device_ms(kernel), "plain_ms": device_ms(plain),
             "library_ms": device_ms(library), "bound_ms": bound,
             "bound_by": by})
@@ -1432,7 +1449,8 @@ def phase_linear_bn_grid(flbn, failures) -> dict:
                 log("# linear_bn_grid " + json.dumps(r))
                 if not r["ok"]:
                     failures.append(f"{r['kernel']} disagrees with its plain "
-                                    f"version or does not repeat: {r}")
+                                    f"version or does not repeat, or its "
+                                    f"limit passes a lost chunk: {r}")
             torch.cuda.empty_cache()
     step = {}
     for name in ("linear_bn_fwd", "linear_bn_bwd_dx", "linear_bn_bwd_dw"):

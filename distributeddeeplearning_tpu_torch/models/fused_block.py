@@ -62,10 +62,9 @@ class FusedBottleneckBlock(BottleneckBlock):
     training. Input: channels_last (N, C, H, W); output likewise."""
 
     def __init__(self, cin: int, filters: int, stride: int, *,
-                 dtype: torch.dtype, fused_bn: bool = False):
-        # The block's own BatchNorms only hold variables (and run the eval
-        # composition); ``fused_bn`` governs the stem alone.
-        del fused_bn
+                 dtype: torch.dtype):
+        # The block's own BatchNorms are plain: in training they only hold
+        # variables; in eval they run the plain composition.
         super().__init__(cin, filters, stride, dtype=dtype, fused_bn=False)
 
     def forward(self, x):

@@ -178,6 +178,9 @@ class ResNet(nn.Module):
             from distributeddeeplearning_tpu_torch.models.fused_block import (
                 FusedBottleneckBlock)
             block = FusedBottleneckBlock
+        # fused_bn reaches the blocks it applies to; with fused_block it
+        # governs the stem alone.
+        per_block = {} if fused_block else {"fused_bn": fused_bn}
         self.dtype = dtype
         self.conv_stem = Conv(3, width, 7, 2, 3, dtype=dtype)
         self.bn_stem = _norm(fused_bn)(width, dtype=dtype)
@@ -188,7 +191,7 @@ class ResNet(nn.Module):
                 filters = width * 2 ** i
                 setattr(self, f"stage{i + 1}_block{j + 1}",
                         block(cin, filters, stride, dtype=dtype,
-                              fused_bn=fused_bn))
+                              **per_block))
                 cin = filters * block.expansion
         self.classifier = Dense(cin, num_classes, dtype)
         std = math.sqrt(1.0 / cin) / _TRUNC_STD

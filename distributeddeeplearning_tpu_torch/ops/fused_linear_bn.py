@@ -233,13 +233,19 @@ def linear_bn_bwd_dx_cuda(dy, y, ds, dss, w, x, mu, inv, gamma, beta, *,
     return dx, db, dg
 
 
+def dw_splits(m: int, k: int, n: int, dtype: torch.dtype) -> int:
+    """The number of chunks of M that kernel #10 sums separately (and then
+    in order) at this shape."""
+    return _fn("flbn_dw_splits", (_L, _I, _I, _I))(m, k, n, _DTYPES[dtype])
+
+
 def linear_bn_bwd_dw_cuda(x, mu, inv, gamma, beta, dy, y, ds, dss, *,
                           relu: bool, bn: bool):
     """Launch kernel #10: dw as :func:`linear_bn_bwd_dw_reference`."""
     global bwd_dw_launches
     (m, k), n = x.shape, dy.shape[1]
     dtype = _DTYPES[x.dtype]
-    splits = _fn("flbn_dw_splits", (_L, _I, _I, _I))(m, k, n, dtype)
+    splits = dw_splits(m, k, n, x.dtype)
     work = _f32(k, x, splits, n)
     dw = torch.empty((n, k), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):

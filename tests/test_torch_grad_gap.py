@@ -1,14 +1,13 @@
 """How far one float32 ResNet-50 training step is from the same step in
-float64, in the JAX package and in the PyTorch port, on the CPU.
+float64, in the JAX package and in the PyTorch port, on the CPU:
 
-    JAX_PLATFORMS=cpu python tests/torch_port_grad_gap.py --framework jax
-    JAX_PLATFORMS=cpu python tests/torch_port_grad_gap.py --framework torch
+    JAX_PLATFORMS=cpu python -m pytest -m slow -s tests/test_torch_grad_gap.py
 
-Not a test (pytest does not collect it): a measurement behind the gate of
-``chip_smoke.py``'s fused-vs-unfused steps, which holds each f32 step's
-gradients to the f64 step's because two f32 orders of summation do not
-agree within 1e-3 a tensor. The question it answers: is that gap the
-network's (JAX's f32 step is as far from its f64 step), or the port's?
+The measurement behind the gate of ``chip_smoke.py``'s fused-vs-unfused
+steps, which holds each f32 step's gradients to the f64 step's because two
+f32 orders of summation do not agree within 1e-3 a tensor. The question it
+answers: is that gap the network's (JAX's f32 step is as far from its f64
+step), or the port's? The test asserts the first.
 
 Both sides start from the same weights: the port's seeded ResNet-50 (the
 seed of that phase), carried to flax by ``utils/weights.py``; and take the
@@ -21,19 +20,16 @@ all tensors relative to the f64 gradients' 2-norm), and how many ReLU and
 max-pool decisions differ between the two forwards. The port's line also
 holds its f32 ``fused_block`` step (the matmul kernels' plain versions on
 the CPU) against the same f64 step.
+
+Marked slow: ResNet-50 at full size in both frameworks, in float64 too.
 """
 
 from __future__ import annotations
 
-import argparse
 import json
-import os
-import sys
 
 import numpy as np
-
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))))
+import pytest
 
 BATCH, IMAGE, CLASSES, SMOOTHING = 32, 224, 1000, 0.1
 WEIGHT_SEED, DATA_SEED = 10, 9   # chip_smoke.py: SEED + 10, SEED + 9
@@ -112,8 +108,6 @@ def flips(a: dict, b: dict) -> dict:
 
 def run_jax(params, stats, images, labels) -> dict:
     import jax
-
-    jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
 
     from distributeddeeplearning_tpu.models import resnet as jresnet
@@ -121,55 +115,65 @@ def run_jax(params, stats, images, labels) -> dict:
 
     results = {}
     for name, dt in (("f32", jnp.float32), ("f64", jnp.float64)):
-        model = jresnet.resnet50(dtype=dt)
-        p = jax.tree.map(lambda a: jnp.asarray(a, dt), params)
-        s = jax.tree.map(lambda a: jnp.asarray(a, dt), stats)
-
-        @jax.jit
-        def step(p, s, x, y):
-            def loss_fn(p):
-                (logits, state) = model.apply(
-                    {"params": p, "batch_stats": s}, x, train=True,
-                    mutable=["batch_stats", "intermediates"],
-                    capture_intermediates=lambda mdl, _: isinstance(
-                        mdl, (jresnet.BottleneckBlock,))
-                    or type(mdl).__name__ == "BatchNorm")
-                return (jlosses.smoothed_softmax_ce(logits, y, SMOOTHING),
-                        state["intermediates"])
-            (loss, inter), grads = jax.value_and_grad(
-                loss_fn, has_aux=True)(p)
-            return loss, grads, inter
-
-        loss, grads, inter = step(p, s, jnp.asarray(images, dt),
-                                  jnp.asarray(labels))
-        flat_inter = {}
-
-        def walk(tree, prefix=""):
-            for k, v in tree.items():
-                if isinstance(v, dict):
-                    walk(v, f"{prefix}{k}/")
-                else:
-                    flat_inter[prefix + k] = np.asarray(v[0], np.float64)
-
-        walk(jax.device_get(inter))
-        # ReLU decisions: bn1, bn2 and bn_stem outputs (pre-ReLU) and each
-        # block's output (post-ReLU; > 0 is the same decision).
-        acts = {k: v for k, v in flat_inter.items()
-                if k.split("/")[-2] in ("bn_stem", "bn1", "bn2")
-                or (k.count("/") == 1 and k.startswith("stage"))}
-        stem = flat_inter["bn_stem/__call__"]
-        flat_grads = {}
-
-        def walk_grads(tree, prefix=""):
-            for k, v in tree.items():
-                if isinstance(v, dict):
-                    walk_grads(v, f"{prefix}{k}/")
-                else:
-                    flat_grads[prefix + k] = np.asarray(v, np.float64)
-
-        walk_grads(jax.device_get(grads))
-        results[name] = (float(loss), flat_grads, decisions(acts, stem))
+        with jax.enable_x64(True):
+            results[name] = _jax_step(jresnet, jlosses, dt, params, stats,
+                                      images, labels)
     return results
+
+
+def _jax_step(jresnet, jlosses, dt, params, stats, images, labels):
+    """(loss, flat gradients, decisions) of one JAX step in ``dt``."""
+    import jax
+    import jax.numpy as jnp
+
+    model = jresnet.resnet50(dtype=dt)
+    p = jax.tree.map(lambda a: jnp.asarray(a, dt), params)
+    s = jax.tree.map(lambda a: jnp.asarray(a, dt), stats)
+
+    @jax.jit
+    def step(p, s, x, y):
+        def loss_fn(p):
+            (logits, state) = model.apply(
+                {"params": p, "batch_stats": s}, x, train=True,
+                mutable=["batch_stats", "intermediates"],
+                capture_intermediates=lambda mdl, _: isinstance(
+                    mdl, (jresnet.BottleneckBlock,))
+                or type(mdl).__name__ == "BatchNorm")
+            return (jlosses.smoothed_softmax_ce(logits, y, SMOOTHING),
+                    state["intermediates"])
+        (loss, inter), grads = jax.value_and_grad(
+            loss_fn, has_aux=True)(p)
+        return loss, grads, inter
+
+    loss, grads, inter = step(p, s, jnp.asarray(images, dt),
+                              jnp.asarray(labels))
+    flat_inter = {}
+
+    def walk(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}/")
+            else:
+                flat_inter[prefix + k] = np.asarray(v[0], np.float64)
+
+    walk(jax.device_get(inter))
+    # ReLU decisions: bn1, bn2 and bn_stem outputs (pre-ReLU) and each
+    # block's output (post-ReLU; > 0 is the same decision).
+    acts = {k: v for k, v in flat_inter.items()
+            if k.split("/")[-2] in ("bn_stem", "bn1", "bn2")
+            or (k.count("/") == 1 and k.startswith("stage"))}
+    stem = flat_inter["bn_stem/__call__"]
+    flat_grads = {}
+
+    def walk_grads(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk_grads(v, f"{prefix}{k}/")
+            else:
+                flat_grads[prefix + k] = np.asarray(v, np.float64)
+
+    walk_grads(jax.device_get(grads))
+    return float(loss), flat_grads, decisions(acts, stem)
 
 
 def run_torch(state, images, labels) -> dict:
@@ -214,26 +218,23 @@ def run_torch(state, images, labels) -> dict:
     return results
 
 
-def main() -> int:
-    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--framework", choices=["jax", "torch"], required=True)
-    args = p.parse_args()
-    params, stats, state, images, labels = seeded_inputs()
-    if args.framework == "jax":
-        res = run_jax(params, stats, images, labels)
-    else:
-        res = run_torch(state, images, labels)
+def _line(framework: str, res: dict) -> dict:
     (l32, g32, d32), (l64, g64, d64) = res["f32"], res["f64"]
     extra = {}
     if "fused_block" in res:
         extra = {"fused_block_vs_f64": grad_errors(res["fused_block"][1],
                                                    g64)}
-    print(json.dumps({"framework": args.framework, "batch": BATCH,
-                      "loss_f32": l32, "loss_f64": l64,
-                      "f32_vs_f64": grad_errors(g32, g64),
-                      **flips(d32, d64), **extra}))
-    return 0
+    line = {"framework": framework, "batch": BATCH, "loss_f32": l32,
+            "loss_f64": l64, "f32_vs_f64": grad_errors(g32, g64),
+            **flips(d32, d64), **extra}
+    print(json.dumps(line))
+    return line
 
 
-if __name__ == "__main__":
-    sys.exit(main())
+@pytest.mark.slow
+def test_jax_f32_step_is_as_far_from_f64_as_the_ports():
+    params, stats, state, images, labels = seeded_inputs()
+    port = _line("torch", run_torch(state, images, labels))
+    ref = _line("jax", run_jax(params, stats, images, labels))
+    for key in ("worst", "norm"):
+        assert ref["f32_vs_f64"][key] >= port["f32_vs_f64"][key], key
