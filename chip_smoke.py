@@ -61,8 +61,21 @@ Run from the root of a checkout. Phases:
    finite and the first near ln(1000); images/s, peak memory and a
    device-time profile of one step, and beside it, for the record, the
    profile of one step of the unfused path;
-15. one f32 step of ResNet-50 at batch 32 with ``fused_block`` on and off,
-   same weights and batch, held as phase 12.
+15. the 3x3 conv+BatchNorm kernel grid: kernels #11-#13 against their
+   plain versions at the four (H = W, C) shapes of ResNet-50's 13 stride-1
+   3x3 convolutions at batch 512, with the prologue and ReLU, and one small
+   row without the prologue, in bf16 and f32, with device times, bounds,
+   the plain versions' times and cuDNN (``F.conv2d``,
+   ``torch.nn.grad.conv2d_input`` and ``conv2d_weight`` of the bare
+   convolution) as the library yardstick; the sums of #11 and #12 and the
+   whole of #13 run twice and must repeat bit for bit, and each dw check
+   must fail a dw that lacks one of #13's chunks of M;
+16. the ``--fused-block --fused-conv3`` training path, as phase 14: each
+   matmul kernel launched 36 x steps times, each 3x3 kernel 13 x steps
+   times, no other kernel of the port;
+17. one f32 step of ResNet-50 at batch 32 with ``fused_block``, with
+   ``fused_block`` and ``fused_conv3``, and with neither, same weights and
+   batch, held as phase 12 (one f64 step serves both).
 
 Each phase prints its wall seconds. It prints a ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, "device": {...}}``. Any failed phase exits
@@ -158,7 +171,9 @@ RESNET_FIRST_LOSS_TOL = 0.3
 # against the f64 step instead. The --fused-block step takes the
 # statistics of its 1x1 convolutions in double and reads 9.8e-5 (worst)
 # and 4.3e-6 (2-norm) on an H100: it is held to the f64 step directly,
-# within FUSED_BLOCK_GRAD_WORST and FUSED_BLOCK_GRAD_NORM.
+# within FUSED_BLOCK_GRAD_WORST and FUSED_BLOCK_GRAD_NORM, and so is the
+# step with --fused-conv3 too, whose 3x3 kernels take bn2's statistics in
+# double as well.
 FUSED_BATCH = 32
 FUSED_LOSS_TOL = 1e-4
 FUSED_GRAD_FACTOR = 2.0
@@ -178,6 +193,12 @@ FUSED_BUFFER_TOL = 1e-5
 FLBN_PROD_TOL = 1e-5
 FLBN_SUM_TOL = 1e-5
 RESNET_LINEAR_LAYERS = 36  # 16 blocks x (conv1, conv3), 4 downsamples
+# The 3x3 conv+BatchNorm kernels are held as the matmul kernels are: y and
+# dx per element of their (pixels, channels) view, dw of its (Cout, 9 *
+# Cin) view, within FLBN_PROD_TOL of their column's largest |ref| (a bf16
+# output one more ulp), the sums within FLBN_SUM_TOL of their sum of
+# |terms|.
+RESNET_CONV3_LAYERS = 13  # the 3x3s of the 13 stride-1 bottlenecks
 
 
 def log(msg: str) -> None:
@@ -539,12 +560,16 @@ def phase_gpt2(kernels, failures, scratch: Path) -> dict:
 FLASH_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
 FLBN_KERNELS = ("flbn_fwd_kernel", "flbn_bwd_dx_kernel", "flbn_bwd_dw_kernel",
                 "flbn_column_finish_kernel", "flbn_dw_finish_kernel")
+FCBN_KERNELS = ("fcbn_fwd_kernel", "fcbn_bwd_dx_kernel", "fcbn_bwd_dw_kernel",
+                "fcbn_column_finish_kernel", "fcbn_dw_finish_kernel")
 BN_KERNELS = ("bn_stats_partial_kernel", "bn_apply_kernel",
               "bn_bwd_reduce_partial_kernel", "bn_bwd_dx_kernel",
               "bn_finish_kernel")
 KERNEL_CLASSES = (
     ("flash", FLASH_KERNELS),
-    # Before "bn": flbn_bwd_dx_kernel holds bn_bwd_dx_kernel.
+    # Before "bn": flbn_bwd_dx_kernel and fcbn_bwd_dx_kernel hold
+    # bn_bwd_dx_kernel.
+    ("conv_bn", FCBN_KERNELS),
     ("linear_bn", FLBN_KERNELS),
     ("bn", BN_KERNELS),
     # cuDNN's convolutions (before "gemm": their names hold implicit_gemm).
@@ -1126,17 +1151,18 @@ def resnet_step_profile(flags, focus) -> dict:
     return profile
 
 
-def phase_resnet_train(kernels, failures, flag, module, per_step,
-                       focus) -> dict:
-    """A ResNet training path: ResNet-50 with ``flag`` (--fused-bn or
-    --fused-block) at batch 512 through the CLI, where each kernel of
-    ``module`` must launch ``per_step`` times a step and no other kernel of
-    the port at all; then a device-time profile of one step of the same
+def phase_resnet_train(kernels, failures, flags, per_step, focus) -> dict:
+    """A ResNet training path: ResNet-50 with ``flags`` (--fused-bn,
+    --fused-block, or --fused-block --fused-conv3) at batch 512 through the
+    CLI, where each kernel of a module of ``per_step`` ({module: launches a
+    step}) must launch that many times a step and no other kernel of the
+    port at all; then a device-time profile of one step of the same
     configuration."""
     import torch
 
+    flag = " ".join(flags)
     argv = ["--model", "resnet50", "--batch-size", str(RESNET_BATCH),
-            "--synthetic", flag, "--steps", str(RESNET_STEPS),
+            "--synthetic", *flags, "--steps", str(RESNET_STEPS),
             "--log-every", "1", "--seed", str(SEED)]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1147,8 +1173,8 @@ def phase_resnet_train(kernels, failures, flag, module, per_step,
     cli_s = time.perf_counter() - t0
     launches = read_counts(kernels)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    expected = {k["name"]: per_step * RESNET_STEPS
-                if k["module"] is module else 0 for k in kernels}
+    expected = {k["name"]: per_step.get(k["module"], 0) * RESNET_STEPS
+                for k in kernels}
     metrics = [x for x in lines if "step" in x]
     summary = lines[-1].get("summary", {})
     losses = [x["loss"] for x in metrics]
@@ -1167,18 +1193,19 @@ def phase_resnet_train(kernels, failures, flag, module, per_step,
                         f"of ln {RESNET_CLASSES}")
     if not summary.get("examples_per_sec"):
         failures.append(f"ResNet summary without images/s: {summary}")
-    profile = resnet_step_profile([flag], focus)
+    profile = resnet_step_profile(flags, focus)
     return {"launches": launches, "summary": summary, "profile": profile,
             "peak_memory_gb": peak_gb, "losses": losses}
 
 
-def phase_fused_vs_unfused_step(failures, flag: str) -> None:
-    """One step of ResNet-50 at batch 32 in f32 with ``flag`` (fused_bn or
-    fused_block) on and off, and unfused in f64 as the reference of exact
-    arithmetic: the same seeded weights and batch. The f32 losses and
-    updated running buffers are compared with each other, each f32 step's
-    gradients with the f64 step's: fused_bn's relative to the unfused f32
-    step's distance, fused_block's directly."""
+def phase_fused_vs_unfused_step(failures, fused: dict) -> None:
+    """One step of ResNet-50 at batch 32 in f32 with each model option set
+    of ``fused`` ({label: get_model keywords}: fused_bn; fused_block;
+    fused_block with fused_conv3), and unfused in f32 and in f64 as the
+    reference of exact arithmetic: the same seeded weights and batch. Each
+    fused step's loss and updated running buffers are compared with the
+    unfused f32 step's, its gradients with the f64 step's: fused_bn's
+    relative to the unfused f32 step's distance, the others directly."""
     import torch
 
     from distributeddeeplearning_tpu_torch.data.synthetic import (
@@ -1191,10 +1218,10 @@ def phase_fused_vs_unfused_step(failures, flag: str) -> None:
                             SEED + 9, "cuda").batch(0)
     results, state = {}, None
     torch.manual_seed(SEED + 10)  # the weights, from a seed
-    for name, dtype, fused in (("fused", torch.float32, True),
-                               ("unfused", torch.float32, False),
-                               ("f64", torch.float64, False)):
-        model = get_model("resnet50", dtype=dtype, **{flag: fused}).train()
+    runs = [*((label, torch.float32, kw) for label, kw in fused.items()),
+            ("unfused", torch.float32, {}), ("f64", torch.float64, {})]
+    for name, dtype, kw in runs:
+        model = get_model("resnet50", dtype=dtype, **kw).train()
         if state is None:  # a copy: the forward updates the buffers
             state = {k: v.clone() for k, v in model.state_dict().items()}
         else:
@@ -1206,8 +1233,8 @@ def phase_fused_vs_unfused_step(failures, flag: str) -> None:
                          {n: b.clone() for n, b in model.named_buffers()})
         del model, loss
         torch.cuda.empty_cache()
-    (loss_f, grads_f, bufs_f), (loss_u, grads_u, bufs_u), (_, grads_x, _) = (
-        results["fused"], results["unfused"], results["f64"])
+    loss_u, grads_u, bufs_u = results["unfused"]
+    grads_x = results["f64"][1]
     top = max(g.abs().max().item() for g in grads_x.values())
     norm = sum((g * g).sum().item() for g in grads_x.values()) ** 0.5
 
@@ -1220,32 +1247,35 @@ def phase_fused_vs_unfused_step(failures, flag: str) -> None:
                     for n, g in ref.items()) ** 0.5
         return worst[0], worst[1], total / norm
 
-    fused, unfused, between = (errs(grads_f, grads_x),
-                               errs(grads_u, grads_x),
-                               errs(grads_f, grads_u))
-    buf_err = max((bufs_f[n] - b).abs().max().item()
-                  / max(b.abs().max().item(), 1.0)
-                  for n, b in bufs_u.items())
-    loss_err = abs(loss_f - loss_u)
-    log(f"# resnet50 step, {flag} f32 vs unfused f32 vs unfused f64 (batch "
-        f"{FUSED_BATCH}): losses {loss_f!r} / {loss_u!r}, loss err "
-        f"{loss_err:.3e}, worst running-buffer err {buf_err:.3e}; gradients "
-        f"against f64, worst tensor and 2-norm: fused {fused[0]:.3e} "
-        f"({fused[1]}), {fused[2]:.3e}; unfused {unfused[0]:.3e} "
-        f"({unfused[1]}), {unfused[2]:.3e}; fused against unfused "
-        f"{between[0]:.3e} ({between[1]}), {between[2]:.3e}")
-    if flag == "fused_block":
-        grads_ok = (fused[0] <= FUSED_BLOCK_GRAD_WORST
-                    and fused[2] <= FUSED_BLOCK_GRAD_NORM)
-    else:
-        grads_ok = (fused[0] <= FUSED_GRAD_FACTOR * unfused[0]
-                    and fused[2] <= FUSED_GRAD_FACTOR * unfused[2])
-    if not (loss_err <= FUSED_LOSS_TOL and buf_err <= FUSED_BUFFER_TOL
-            and grads_ok):
-        failures.append(f"{flag} vs unfused ResNet step: loss err {loss_err}, "
-                        f"buffer err {buf_err}, gradient errs against f64 "
-                        f"fused {fused}, unfused {unfused}")
-    del results, grads_f, grads_u, grads_x
+    unfused = errs(grads_u, grads_x)
+    for label in fused:
+        loss_f, grads_f, bufs_f = results[label]
+        mine, between = errs(grads_f, grads_x), errs(grads_f, grads_u)
+        buf_err = max((bufs_f[n] - b).abs().max().item()
+                      / max(b.abs().max().item(), 1.0)
+                      for n, b in bufs_u.items())
+        loss_err = abs(loss_f - loss_u)
+        log(f"# resnet50 step, {label} f32 vs unfused f32 vs unfused f64 "
+            f"(batch {FUSED_BATCH}): losses {loss_f!r} / {loss_u!r}, loss "
+            f"err {loss_err:.3e}, worst running-buffer err {buf_err:.3e}; "
+            f"gradients against f64, worst tensor and 2-norm: fused "
+            f"{mine[0]:.3e} ({mine[1]}), {mine[2]:.3e}; unfused "
+            f"{unfused[0]:.3e} ({unfused[1]}), {unfused[2]:.3e}; fused "
+            f"against unfused {between[0]:.3e} ({between[1]}), "
+            f"{between[2]:.3e}")
+        if label == "fused_bn":
+            grads_ok = (mine[0] <= FUSED_GRAD_FACTOR * unfused[0]
+                        and mine[2] <= FUSED_GRAD_FACTOR * unfused[2])
+        else:
+            grads_ok = (mine[0] <= FUSED_BLOCK_GRAD_WORST
+                        and mine[2] <= FUSED_BLOCK_GRAD_NORM)
+        if not (loss_err <= FUSED_LOSS_TOL and buf_err <= FUSED_BUFFER_TOL
+                and grads_ok):
+            failures.append(f"{label} vs unfused ResNet step: loss err "
+                            f"{loss_err}, buffer err {buf_err}, gradient "
+                            f"errs against f64 fused {mine}, unfused "
+                            f"{unfused}")
+    del results, grads_u, grads_x
     torch.cuda.empty_cache()
 
 
@@ -1463,6 +1493,228 @@ def phase_linear_bn_grid(flbn, failures) -> dict:
     return {"grid": grid, "step": step, "main": layers[1]}
 
 
+def resnet50_conv3_layers() -> list[tuple]:
+    """(B, H, W, C) of each 3x3 convolution that --fused-conv3 runs through
+    kernels #11-#13, at the training path's batch and image size, in
+    forward order: the conv2 of each stride-1 bottleneck, C in and out."""
+    import torch
+
+    from distributeddeeplearning_tpu_torch.models import resnet
+
+    with torch.device("meta"):
+        model = resnet.resnet50(dtype=torch.bfloat16)
+    side = RESNET_IMAGE // 4   # after the stem's stride and the max-pool's
+    layers = []
+    for name, block in model.named_children():
+        if not name.startswith("stage"):
+            continue
+        if block.conv2.stride == 1:
+            layers.append((RESNET_BATCH, side, side,
+                           block.conv2.weight.shape[0]))
+        side = -(-side // block.conv2.stride)
+    return layers
+
+
+def conv_bn_bound(kernel: str, b: int, h: int, w: int, cin: int, cout: int,
+                  bn: bool, dtype: str) -> tuple[float, str]:
+    """The least time of kernel #11, #12 or #13 on (B, H, W): 2 M 9 Cin
+    Cout FLOPs (M = B H W) at the dtype's peak, against its bytes over HBM,
+    each input read once and each output written once: the (M, Cin) and
+    (M, Cout) activations and the (Cout, 9 Cin) weight in the dtype, the
+    f32 vectors (mu, inv, gamma, beta with ``bn``; sum and sumsq or ds and
+    dss; dbeta and dgamma with ``bn``). Returns (ms, bound_by)."""
+    e = 4 if dtype == "float32" else 2
+    m = b * h * w
+    wb = 9 * cin * cout * e
+    vk = 4 * cin * 4 if bn else 0
+    nbytes = {
+        "conv3x3_bn_fwd": (m * cin + m * cout) * e + wb + vk + 2 * cout * 4,
+        "conv3x3_bn_bwd_dx": ((2 * m * cout + m * cin + (m * cin if bn else 0))
+                              * e + wb + 2 * cout * 4 + vk
+                              + (2 * cin * 4 if bn else 0)),
+        "conv3x3_bn_bwd_dw": (m * cin + 2 * m * cout) * e + wb + vk
+        + 2 * cout * 4,
+    }[kernel]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2 * m * 9 * cin * cout / PEAK_FLOPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def conv_bn_case(fcbn, b, h, w, cin, cout, bn, relu, dtype,
+                 seed) -> list[dict]:
+    """One grid row: kernels #11-#13 on (B, H, W, Cin -> Cout) against their
+    plain versions, with device times, bounds and the library yardstick
+    (one cuDNN call of the bare convolution: ``F.conv2d``, and
+    ``torch.nn.grad.conv2d_input`` and ``conv2d_weight`` for the backward,
+    with no prologue and no sums). The reductions run twice and must agree
+    bit for bit; the dw check must fail a dw that lacks one of #13's chunks
+    of M."""
+    import torch
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def rows(t):
+        return t.reshape(-1, t.shape[-1])
+
+    def dw_rows(t):
+        return t.permute(0, 2, 3, 1).reshape(t.shape[0], -1)
+
+    m = b * h * w
+    x = rand(b, h, w, cin).to(tdt)
+    wt = rand(cout, cin, 3, 3, scale=(9 * cin) ** -0.5).to(
+        tdt, memory_format=torch.channels_last)
+    vecs = ((rand(cin, scale=0.3), rand(cin).abs() + 0.5,
+             rand(cin).abs() + 0.5, rand(cin, scale=0.3)) if bn
+            else (None,) * 4)
+    mu, inv, gamma, beta = vecs
+    dy, y = rand(b, h, w, cout).to(tdt), rand(b, h, w, cout).to(tdt)
+    ds, dss = rand(cout, scale=0.1), rand(cout, scale=0.1)
+    mode = dict(relu=relu, bn=bn)
+    errs, repeat = {}, {}
+
+    out, s, ss = fcbn.conv3x3_bn_fwd(x, *vecs, wt, **mode)
+    _, s2, ss2 = fcbn.conv3x3_bn_fwd(x, *vecs, wt, **mode)
+    repeat["conv3x3_bn_fwd"] = torch.equal(s, s2) and torch.equal(ss, ss2)
+    ref, rs, rss = fcbn.conv3x3_bn_fwd_reference(x, *vecs, wt, **mode)
+    of, rf = rows(out).float(), rows(ref).float()
+    errs["conv3x3_bn_fwd"] = [
+        prod_share(rows(out), rows(ref)),
+        col_share(s, rs, FLBN_SUM_TOL * rf.abs().sum(dim=0)
+                  + (of - rf).abs().sum(dim=0) + 1e-30),
+        col_share(ss, rss, FLBN_SUM_TOL * (rf * rf).sum(dim=0)
+                  + (of * of - rf * rf).abs().sum(dim=0) + 1e-30)]
+    finite = bool(torch.isfinite(of).all())
+    del out, ref, of, rf, s2, ss2
+
+    dx, db, dg = fcbn.conv3x3_bn_bwd_dx(dy, y, ds, dss, wt, x, *vecs, **mode)
+    again = fcbn.conv3x3_bn_bwd_dx(dy, y, ds, dss, wt, x, *vecs, **mode)
+    repeat["conv3x3_bn_bwd_dx"] = (torch.equal(db, again[1])
+                                   and torch.equal(dg, again[2])) if bn \
+        else None
+    rdx, rdb, rdg = fcbn.conv3x3_bn_bwd_dx_reference(dy, y, ds, dss, wt, x,
+                                                     *vecs, **mode)
+    dyt = fcbn._dy_total(dy, y, ds, dss)
+    errs["conv3x3_bn_bwd_dx"] = [prod_share(rows(dx), rows(rdx))]
+    if bn:
+        xh = (x.float() - mu) * inv
+        da = fcbn._conv(dyt, wt.flip(2, 3).transpose(0, 1))
+        dz = torch.where(xh * gamma + beta > 0, da, 0.0) if relu else da
+        errs["conv3x3_bn_bwd_dx"] += [
+            col_share(db, rdb, FLBN_SUM_TOL * rows(dz).abs().sum(dim=0)
+                      + 1e-30),
+            col_share(dg, rdg, FLBN_SUM_TOL * rows(dz * xh).abs().sum(dim=0)
+                      + 1e-30)]
+        del xh, da, dz
+    finite = finite and bool(torch.isfinite(dx.float()).all())
+    del dx, again, rdx
+
+    dw = fcbn.conv3x3_bn_bwd_dw(x, *vecs, dy, y, ds, dss, **mode)
+    repeat["conv3x3_bn_bwd_dw"] = torch.equal(
+        dw, fcbn.conv3x3_bn_bwd_dw(x, *vecs, dy, y, ds, dss, **mode))
+    rdw = fcbn.conv3x3_bn_bwd_dw_reference(x, *vecs, dy, y, ds, dss, **mode)
+    errs["conv3x3_bn_bwd_dw"] = [prod_share(dw_rows(dw), dw_rows(rdw))]
+    # The limit must see a dw that lacks one of the kernel's chunks of M:
+    # this one lacks the middle chunk's output pixels.
+    chunk = -(-m // fcbn.dw_splits(m, cin, cout, tdt))
+    r0 = min(m // 2, m - chunk)
+    part = torch.zeros(m, cout, device=dev)
+    part[r0:r0 + chunk] = rows(dyt)[r0:r0 + chunk].float()
+    a = fcbn._prologue(x, *vecs, relu, bn).float().permute(0, 3, 1, 2)
+    lost = torch.nn.grad.conv2d_weight(
+        a, dw.shape, part.view(b, h, w, cout).permute(0, 3, 1, 2), padding=1)
+    dropped = prod_share(dw_rows((dw.float() - lost).to(tdt)),
+                         dw_rows(rdw))[1]
+    finite = finite and bool(torch.isfinite(dw.float()).all())
+    del dw, rdw, dyt, part, a, lost
+    torch.cuda.synchronize()
+
+    x4, dy4 = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+    runs = {
+        "conv3x3_bn_fwd": (
+            lambda: fcbn.conv3x3_bn_fwd(x, *vecs, wt, **mode),
+            lambda: fcbn.conv3x3_bn_fwd_reference(x, *vecs, wt, **mode),
+            lambda: F.conv2d(x4, wt, padding=1)),
+        "conv3x3_bn_bwd_dx": (
+            lambda: fcbn.conv3x3_bn_bwd_dx(dy, y, ds, dss, wt, x, *vecs,
+                                           **mode),
+            lambda: fcbn.conv3x3_bn_bwd_dx_reference(dy, y, ds, dss, wt, x,
+                                                     *vecs, **mode),
+            lambda: torch.nn.grad.conv2d_input(x4.shape, wt, dy4,
+                                               padding=1)),
+        "conv3x3_bn_bwd_dw": (
+            lambda: fcbn.conv3x3_bn_bwd_dw(x, *vecs, dy, y, ds, dss, **mode),
+            lambda: fcbn.conv3x3_bn_bwd_dw_reference(x, *vecs, dy, y, ds,
+                                                     dss, **mode),
+            lambda: torch.nn.grad.conv2d_weight(x4, wt.shape, dy4,
+                                                padding=1)),
+    }
+    rows_out = []
+    for name, (kernel, plain, library) in runs.items():
+        share = max(e[1] for e in errs[name])
+        ok_repeat = repeat[name] is not False
+        sees_drop = name != "conv3x3_bn_bwd_dw" or dropped > 1.0
+        bound, by = conv_bn_bound(name, b, h, w, cin, cout, bn, dtype)
+        rows_out.append({
+            "kernel": name, "b": b, "h": h, "w": w, "cin": cin,
+            "cout": cout, "bn": bn, "relu": relu, "dtype": dtype,
+            "max_abs_err": max(e[0] for e in errs[name]),
+            "err_over_tol": share, "repeats": repeat[name],
+            **({"dropped_chunk_over_tol": dropped}
+               if name == "conv3x3_bn_bwd_dw" else {}),
+            "ok": finite and share <= 1.0 and ok_repeat and sees_drop,
+            "ms": device_ms(kernel), "plain_ms": device_ms(plain),
+            "library_ms": device_ms(library), "bound_ms": bound,
+            "bound_by": by})
+    return rows_out
+
+
+def phase_conv_bn_grid(fcbn, failures) -> dict:
+    """Kernels #11-#13 over the four (B, H, W, C) shapes of ResNet-50's 13
+    stride-1 3x3 convolutions at batch 512, with the prologue and ReLU, and
+    one small row without the prologue (Cin != Cout), in bf16 (the training
+    path's dtype) and f32. Returns {dtype: {variant: rows by kernel}}, logs
+    each row, and for bf16 each kernel's time summed over one step's 13
+    layers."""
+    import torch
+
+    layers = resnet50_conv3_layers()
+    variants = [(*v, v[-1], True, True) for v in sorted(set(layers))]
+    variants.append((8, 28, 28, 64, 128, False, False))
+    grid = {}
+    seed = SEED + 60
+    for dtype in ("bfloat16", "float32"):
+        grid[dtype] = {}
+        for v in variants:
+            seed += 1
+            rows = conv_bn_case(fcbn, *v, dtype, seed)
+            grid[dtype][v] = {r["kernel"]: r for r in rows}
+            for r in rows:
+                log("# conv_bn_grid " + json.dumps(r))
+                if not r["ok"]:
+                    failures.append(f"{r['kernel']} disagrees with its plain "
+                                    f"version or does not repeat, or its "
+                                    f"limit passes a lost chunk: {r}")
+            torch.cuda.empty_cache()
+    step = {}
+    for name in ("conv3x3_bn_fwd", "conv3x3_bn_bwd_dx", "conv3x3_bn_bwd_dw"):
+        step[name] = {key: sum(grid["bfloat16"][(*v, v[-1], True, True)]
+                               [name][key] for v in layers)
+                      for key in ("ms", "bound_ms", "plain_ms",
+                                  "library_ms")}
+    log("# conv_bn_grid one ResNet-50 step (13 layers, bf16, batch 512), "
+        "summed ms by kernel: " + json.dumps(step))
+    # The main row: stage 1's 3x3, the prologue and ReLU on.
+    return {"grid": grid, "step": step,
+            "main": (*layers[0], layers[0][-1], True, True)}
+
+
 def main() -> int:
     import torch
 
@@ -1472,6 +1724,7 @@ def main() -> int:
         return 1
     from distributeddeeplearning_tpu_torch.ops import flash_attention as fa
     from distributeddeeplearning_tpu_torch.ops import fused_batchnorm as bn
+    from distributeddeeplearning_tpu_torch.ops import fused_conv_bn as fcbn
     from distributeddeeplearning_tpu_torch.ops import fused_linear_bn as flbn
 
     # Full-f32 references: no TF32 in the plain versions' products.
@@ -1481,6 +1734,7 @@ def main() -> int:
     replaces = "distributeddeeplearning_tpu/ops/flash_attention.py:"
     replaces_bn = "distributeddeeplearning_tpu/ops/fused_batchnorm.py:"
     replaces_lb = "distributeddeeplearning_tpu/ops/fused_linear_bn.py:"
+    replaces_cb = "distributeddeeplearning_tpu/ops/fused_conv_bn.py:"
     kernels = [
         {"name": "flash_attention_fwd", "counter": "launches",
          "module": fa, "build": fa.SOURCE, "replaces": replaces + "101"},
@@ -1504,6 +1758,14 @@ def main() -> int:
         {"name": "linear_bn_bwd_dw", "counter": "bwd_dw_launches",
          "module": flbn, "build": flbn.SOURCE,
          "replaces": replaces_lb + "216"},
+        {"name": "conv3x3_bn_fwd", "counter": "fwd_launches", "module": fcbn,
+         "build": fcbn.SOURCE, "replaces": replaces_cb + "130"},
+        {"name": "conv3x3_bn_bwd_dx", "counter": "bwd_dx_launches",
+         "module": fcbn, "build": fcbn.SOURCE,
+         "replaces": replaces_cb + "201"},
+        {"name": "conv3x3_bn_bwd_dw", "counter": "bwd_dw_launches",
+         "module": fcbn, "build": fcbn.SOURCE,
+         "replaces": replaces_cb + "296"},
     ]
     for k in kernels:
         k.update(route="cuda", source=csrc + k["build"])
@@ -1530,25 +1792,35 @@ def main() -> int:
         timed("flash_vs_dense_step", phase_flash_vs_dense_step, failures)
         bn_grid = timed("bn_grid", phase_bn_grid, bn, failures)
         resnet = timed("resnet_train", phase_resnet_train, kernels, failures,
-                       "--fused-bn", bn, RESNET_BN_LAYERS,
+                       ["--fused-bn"], {bn: RESNET_BN_LAYERS},
                        ("bn", BN_KERNELS))
         timed("fused_vs_unfused_step", phase_fused_vs_unfused_step,
-              failures, "fused_bn")
+              failures, {"fused_bn": {"fused_bn": True}})
         lb_grid = timed("linear_bn_grid", phase_linear_bn_grid, flbn,
                         failures)
         block = timed("resnet_fused_block_train", phase_resnet_train,
-                      kernels, failures, "--fused-block", flbn,
-                      RESNET_LINEAR_LAYERS, ("linear_bn", FLBN_KERNELS))
+                      kernels, failures, ["--fused-block"],
+                      {flbn: RESNET_LINEAR_LAYERS},
+                      ("linear_bn", FLBN_KERNELS))
         unfused = timed("resnet_unfused_step", resnet_step_profile, [],
                         ("bn", BN_KERNELS))
+        cb_grid = timed("conv_bn_grid", phase_conv_bn_grid, fcbn, failures)
+        conv3 = timed("resnet_fused_conv3_train", phase_resnet_train,
+                      kernels, failures, ["--fused-block", "--fused-conv3"],
+                      {flbn: RESNET_LINEAR_LAYERS, fcbn: RESNET_CONV3_LAYERS},
+                      ("fused_block", FLBN_KERNELS + FCBN_KERNELS))
         log("# resnet50 A/B, one bf16 step at batch 512 (wall us, busy us): "
             + json.dumps({name: [p.get("wall_us"), p.get("device_busy_us")]
                           for name, p in (
                               ("unfused", unfused),
                               ("--fused-bn", resnet["profile"]),
-                              ("--fused-block", block["profile"]))}))
+                              ("--fused-block", block["profile"]),
+                              ("--fused-block --fused-conv3",
+                               conv3["profile"]))}))
         timed("fused_block_vs_unfused_step", phase_fused_vs_unfused_step,
-              failures, "fused_block")
+              failures, {"fused_block": {"fused_block": True},
+                         "fused_block+fused_conv3": {
+                             "fused_block": True, "fused_conv3": True}})
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     log(f"# total: {time.perf_counter() - t_start:.2f} s")
@@ -1562,9 +1834,13 @@ def main() -> int:
     # launches from the ResNet-50 --fused-bn run, and ``step_ms``: the
     # kernel's time summed over one step's 53 layers. Matmul rows: stage 1's
     # conv3 (1,605,632 x 64 -> 256, bf16, prologue and ReLU), launches from
-    # the --fused-block run, ``step_ms`` summed over its 36 layers.
+    # the --fused-block run, ``step_ms`` summed over its 36 layers. 3x3
+    # rows: stage 1's 3x3 (512 x 56 x 56, 64 -> 64, bf16, prologue and
+    # ReLU), launches from the --fused-block --fused-conv3 run, ``step_ms``
+    # summed over its 13 layers.
     stem = bn_grid["grid"]["bfloat16"][bn_grid["stem"]]
-    conv3 = lb_grid["grid"]["bfloat16"][lb_grid["main"]]
+    lin_main = lb_grid["grid"]["bfloat16"][lb_grid["main"]]
+    conv_main = cb_grid["grid"]["bfloat16"][cb_grid["main"]]
     kernel_rows = []
     for k in kernels:
         if k["module"] is fa:
@@ -1573,9 +1849,12 @@ def main() -> int:
         elif k["module"] is bn:
             row, launches = stem[k["name"]], resnet["launches"]
             extra = {"step_ms": bn_grid["step"][k["name"]]["ms"]}
-        else:
-            row, launches = conv3[k["name"]], block["launches"]
+        elif k["module"] is flbn:
+            row, launches = lin_main[k["name"]], block["launches"]
             extra = {"step_ms": lb_grid["step"][k["name"]]["ms"]}
+        else:
+            row, launches = conv_main[k["name"]], conv3["launches"]
+            extra = {"step_ms": cb_grid["step"][k["name"]]["ms"]}
         kernel_rows.append({
             "name": k["name"], "route": k["route"], "source": k["source"],
             "replaces": k["replaces"], "launches": launches[k["name"]],

@@ -59,6 +59,8 @@ class TrainConfig:
     fused_bn: bool = False        # BatchNorm through the CUDA kernels (CNNs)
     fused_block: bool = False     # bottleneck 1x1 convs through the matmul+
                                   # BatchNorm kernels (ResNet-50/101/152)
+    fused_conv3: bool = False     # with fused_block: stride-1 3x3s through
+                                  # the conv+BatchNorm kernels
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     optimizer: OptimizerConfig = dataclasses.field(
         default_factory=OptimizerConfig)

@@ -1,0 +1,390 @@
+// 3x3 convolution (stride 1, pad 1) with a BatchNorm prologue and a
+// statistics epilogue for Hopper (sm_90a), written by hand: the spatial
+// convolution of a ResNet bottleneck, fed the raw conv1 output.
+//
+// Layouts: x (B, H, W, Cin) and y (B, H, W, Cout), channels-last and
+// contiguous, so pixel m = (b * H + h) * W + w is a row of M = B*H*W; the
+// weight w (Cout, 3, 3, Cin) (the port's (Cout, Cin, 3, 3) weight in
+// channels_last memory); per-channel f32 vectors mu, inv (= rsqrt(var +
+// eps)), gamma, beta of length Cin and ds, dss of length Cout. Three
+// kernels:
+//
+// - fcbn_fwd:    replaces distributeddeeplearning_tpu/ops/fused_conv_bn.py:
+//                _fwd_kernel. a = relu((x - mu) * (inv * gamma) + beta)
+//                rounded to x's type (a = x with bn off), 0 outside the
+//                image (SAME padding of the normalised activations); y =
+//                conv3x3(a, w) rounded to x's type; the columns' sum(y) and
+//                sum(y^2) over y as stored.
+// - fcbn_bwd_dx: replaces _bwd_dx_kernel. dY = dy + ds + 2 y dss rounded to
+//                the type, 0 outside the image; da = conv3x3(dY, flip(w)^T);
+//                with bn, xh = (x - mu) * inv, the ReLU mask z = xh * gamma
+//                + beta > 0, dx = dz * (gamma * inv) and the columns' dbeta
+//                = sum(dz), dgamma = sum(dz * xh); without, dx = da.
+// - fcbn_bwd_dw: replaces _bwd_dw_kernel. dw = patches(a)^T @ dY in w's
+//                (Cout, 3, 3, Cin) layout, a and dY recomputed from x and y.
+//
+// What bounds them on the card: each does 2 * M * 9 * Cin * Cout flops
+// against its bytes (each activation, the weight and the vectors once). At
+// each of ResNet-50's 13 stride-1 3x3s (batch 512) that is 118 GFLOP a
+// kernel. At stage 1 (56 x 56, 64 channels) the forward moves 0.41 GB in
+// bf16, 288 flops a byte, at the tensor cores' balance point (295), and dx
+// and dw, which read three activations, are bound by their bytes; at the
+// wider stages the bytes shrink (0.06 GB at 7 x 7, 512 channels) and the
+// tensor cores bound all three. The design is the simple one that is
+// right, on the tile product of bn_gemm.cuh (mma.sync.m16n8k16 for bf16,
+// FMA for f32):
+//
+// - Implicit GEMM. Each product runs over the (M, 9 * C) im2col matrix
+//   without materialising it: a source fetches 16 bytes of column k = tap *
+//   C + c (tap = 3 * dy + dx) of row m from pixel (h + dy - 1, w + dx - 1)
+//   of m's own image, so a tap that leaves the image (column -1 of a row,
+//   row -1 of an image) reads nothing and stores 0, after the prologue, as
+//   the reference's zeroed halo does. C % 8 == 0, so a 16-byte vector never
+//   straddles two taps. Neighbouring rows of a tile are neighbouring
+//   pixels, so the nine taps of a tile reread the same lines through L1/L2:
+//   the 9x read amplification of a materialised im2col stays on chip, which
+//   is what the reference's (th + 2, W + 2, C) VMEM halo slab was for. The
+//   slab, its three DMAs and the cross-cell VMEM accumulators are not
+//   carried over: blocks run in no order.
+// - dx reads flip(w)^T in place: element (k = tap * Cout + n, c) of the
+//   contracted weight is w[n][8 - tap][c], so no flipped copy is made.
+// - Reductions without atomics, as bn_gemm.cuh's bodies take them: the
+//   forward and dx kernels give each block a fixed run of row tiles and
+//   sum its columns in double into a (splits, C) partial that a second
+//   kernel sums in a fixed order; dw cuts M into fixed chunks (about 1,024
+//   blocks: at stage 1 the output is 64 x 576 against 1.6 M contracted
+//   rows, five output tiles) whose f32 partials a second kernel sums in
+//   order. The results repeat bit for bit from run to run.
+// - Not yet: wgmma, TMA halo loads, a 64-wide tile for Cout = 64 (half of
+//   the 128 x 128 tile computes zeros there), cheaper tap arithmetic.
+//
+// M < 2^31 (the wrapper checks); Cin and Cout multiples of 8; operands
+// 16-byte aligned.
+
+#include "bn_gemm.cuh"
+
+namespace {
+
+// The implicit im2col matrix of a 3x3, stride-1, pad-1 convolution of a
+// (B, H, W, C) source: rows = M pixels, cols = 9 * C. The values are
+// transformed as Source's (KIND, per channel c) and are 0 where the tap
+// leaves the image.
+template <typename T, int KIND>
+struct ConvSource : Source<T, KIND> {
+  using Base = Source<T, KIND>;
+  using typename Base::Frag;
+  using typename Base::Raw;
+  int H, W, C;
+
+  __device__ __forceinline__ void fetch(long long row, int col,
+                                        Frag& f) const {
+    const int tap = col / C;
+    const int c = col - tap * C;
+    f.col = c;
+    f.ok = false;
+    if (row >= this->rows || tap >= 9) return;
+    const int dy = tap / 3 - 1, dx = tap - 3 * (tap / 3) - 1;
+    const int m = static_cast<int>(row);
+    const int rem = m % (H * W);
+    const int h = rem / W + dy, w = rem % W + dx;
+    if (h < 0 || h >= H || w < 0 || w >= W) return;
+    f.ok = true;
+    const long long off = static_cast<long long>(m + dy * W + dx) * C + c;
+    f.a = *reinterpret_cast<const Raw*>(this->a + off);
+    if constexpr (KIND == DY)
+      f.y = *reinterpret_cast<const Raw*>(this->y + off);
+  }
+};
+
+// flip(w)^T of a (Cout, 3, 3, Cin) weight as the (9 * Cout, Cin) matrix
+// the dx product contracts: row k = tap * Cout + n, column c holds
+// w[n][8 - tap][c].
+template <typename T>
+struct FlipSource : Source<T, IDENT> {
+  using Base = Source<T, IDENT>;
+  using typename Base::Frag;
+  using typename Base::Raw;
+  int Cout;
+
+  __device__ __forceinline__ void fetch(long long row, int col,
+                                        Frag& f) const {
+    f.col = col;
+    f.ok = row < this->rows && col < this->cols;
+    if (!f.ok) return;
+    const int k = static_cast<int>(row);
+    const int tap = k / Cout, n = k - tap * Cout;
+    const long long off =
+        (static_cast<long long>(n) * 9 + 8 - tap) * this->cols + col;
+    f.a = *reinterpret_cast<const Raw*>(this->a + off);
+  }
+};
+
+template <class E, int AK>
+__global__ void __launch_bounds__(THREADS, E::MIN_BLOCKS)
+fcbn_fwd_kernel(const typename E::T* __restrict__ x,
+                const typename E::T* __restrict__ w,
+                const float* __restrict__ mu, const float* __restrict__ inv,
+                const float* __restrict__ gamma,
+                const float* __restrict__ beta, typename E::T* __restrict__ y,
+                double* __restrict__ part, long long M, int H, int W,
+                int Cin, int Cout, int splits) {
+  using T = typename E::T;
+  __shared__ __align__(16) unsigned char smem[smem_bytes<E>()];
+  const ConvSource<T, AK> A{{x, nullptr, mu, inv, gamma, beta, M, 9 * Cin},
+                            H, W, Cin};
+  const Source<T, IDENT> B{w, nullptr, nullptr, nullptr, nullptr, nullptr,
+                           Cout, 9 * Cin};
+  fwd_body<E>(A, B, y, part, M, 9 * Cin, Cout, splits, smem);
+}
+
+template <class E, bool BN, bool RELU>
+__global__ void __launch_bounds__(THREADS, E::MIN_BLOCKS)
+fcbn_bwd_dx_kernel(const typename E::T* __restrict__ dy,
+                   const typename E::T* __restrict__ yv,
+                   const float* __restrict__ ds, const float* __restrict__ dss,
+                   const typename E::T* __restrict__ w,
+                   const typename E::T* __restrict__ x,
+                   const float* __restrict__ mu,
+                   const float* __restrict__ inv,
+                   const float* __restrict__ gamma,
+                   const float* __restrict__ beta,
+                   typename E::T* __restrict__ dx, double* __restrict__ part,
+                   long long M, int H, int W, int Cin, int Cout,
+                   int splits) {
+  using T = typename E::T;
+  __shared__ __align__(16) unsigned char smem[smem_bytes<E>()];
+  const ConvSource<T, DY> A{{dy, yv, ds, dss, nullptr, nullptr, M, 9 * Cout},
+                            H, W, Cout};
+  // Read across its rows: the tile's rows are c.
+  const FlipSource<T> B{{w, nullptr, nullptr, nullptr, nullptr, nullptr,
+                         9 * Cout, Cin}, Cout};
+  bwd_dx_body<E, BN, RELU>(A, B, x, mu, inv, gamma, beta, dx, part, M, Cin,
+                           9 * Cout, splits, smem);
+}
+
+template <class E, int XK>
+__global__ void __launch_bounds__(THREADS, E::MIN_BLOCKS)
+fcbn_bwd_dw_kernel(const typename E::T* __restrict__ x,
+                   const float* __restrict__ mu,
+                   const float* __restrict__ inv,
+                   const float* __restrict__ gamma,
+                   const float* __restrict__ beta,
+                   const typename E::T* __restrict__ dy,
+                   const typename E::T* __restrict__ yv,
+                   const float* __restrict__ ds,
+                   const float* __restrict__ dss, float* __restrict__ work,
+                   long long M, int H, int W, int Cin, int Cout, int splits) {
+  using T = typename E::T;
+  __shared__ __align__(16) unsigned char smem[E::SMEM];
+  // Both read across their rows (the contracted index is M): the A tile's
+  // rows are n, the B tile's k = tap * Cin + c.
+  const Source<T, DY> A{dy, yv, ds, dss, nullptr, nullptr, M, Cout};
+  const ConvSource<T, XK> B{{x, nullptr, mu, inv, gamma, beta, M, 9 * Cin},
+                            H, W, Cin};
+  bwd_dw_body<E>(A, B, work, M, Cout, 9 * Cin, splits, smem);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+fcbn_dw_finish_kernel(const float* __restrict__ work, T* __restrict__ dw,
+                      long long NK, int splits) {
+  dw_finish_body(work, dw, NK, splits);
+}
+
+__global__ void __launch_bounds__(FIN_X * FIN_Y)
+fcbn_column_finish_kernel(const double* __restrict__ part,
+                          float* __restrict__ out0, float* __restrict__ out1,
+                          int C, int splits) {
+  column_finish_body(part, out0, out1, C, splits);
+}
+
+int column_finish(const double* part, float* out0, float* out1, int C,
+                  int splits, cudaStream_t s) {
+  fcbn_column_finish_kernel<<<(C + FIN_X - 1) / FIN_X, dim3(FIN_X, FIN_Y), 0,
+                              s>>>(part, out0, out1, C, splits);
+  return cudaGetLastError();
+}
+
+template <class E>
+int launch_fwd(const void* x, const void* w, const float* mu,
+               const float* inv, const float* gamma, const float* beta,
+               void* y, double* part, float* sum, float* sumsq, long long M,
+               int H, int W, int Cin, int Cout, bool relu, bool bn,
+               int splits, cudaStream_t s) {
+  using T = typename E::T;
+  const dim3 grid(cdiv(Cout, TILE), splits);
+  const T* xp = static_cast<const T*>(x);
+  const T* wp = static_cast<const T*>(w);
+  T* yp = static_cast<T*>(y);
+  if (!bn)
+    fcbn_fwd_kernel<E, IDENT><<<grid, THREADS, 0, s>>>(
+        xp, wp, mu, inv, gamma, beta, yp, part, M, H, W, Cin, Cout, splits);
+  else if (relu)
+    fcbn_fwd_kernel<E, AFFINE_RELU><<<grid, THREADS, 0, s>>>(
+        xp, wp, mu, inv, gamma, beta, yp, part, M, H, W, Cin, Cout, splits);
+  else
+    fcbn_fwd_kernel<E, AFFINE><<<grid, THREADS, 0, s>>>(
+        xp, wp, mu, inv, gamma, beta, yp, part, M, H, W, Cin, Cout, splits);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return column_finish(part, sum, sumsq, Cout, splits, s);
+}
+
+template <class E>
+int launch_bwd_dx(const void* dy, const void* y, const float* ds,
+                  const float* dss, const void* w, const void* x,
+                  const float* mu, const float* inv, const float* gamma,
+                  const float* beta, void* dx, double* part, float* dbeta,
+                  float* dgamma, long long M, int H, int W, int Cin, int Cout,
+                  bool relu, bool bn, int splits, cudaStream_t s) {
+  using T = typename E::T;
+  const dim3 grid(cdiv(Cin, TILE), splits);
+  const T* dyp = static_cast<const T*>(dy);
+  const T* yp = static_cast<const T*>(y);
+  const T* wp = static_cast<const T*>(w);
+  const T* xp = static_cast<const T*>(x);
+  T* dxp = static_cast<T*>(dx);
+  if (!bn)
+    fcbn_bwd_dx_kernel<E, false, false><<<grid, THREADS, 0, s>>>(
+        dyp, yp, ds, dss, wp, xp, mu, inv, gamma, beta, dxp, part, M, H, W,
+        Cin, Cout, splits);
+  else if (relu)
+    fcbn_bwd_dx_kernel<E, true, true><<<grid, THREADS, 0, s>>>(
+        dyp, yp, ds, dss, wp, xp, mu, inv, gamma, beta, dxp, part, M, H, W,
+        Cin, Cout, splits);
+  else
+    fcbn_bwd_dx_kernel<E, true, false><<<grid, THREADS, 0, s>>>(
+        dyp, yp, ds, dss, wp, xp, mu, inv, gamma, beta, dxp, part, M, H, W,
+        Cin, Cout, splits);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || !bn) return err;
+  return column_finish(part, dbeta, dgamma, Cin, splits, s);
+}
+
+template <class E>
+int launch_bwd_dw(const void* x, const float* mu, const float* inv,
+                  const float* gamma, const float* beta, const void* dy,
+                  const void* y, const float* ds, const float* dss,
+                  float* work, void* dw, long long M, int H, int W, int Cin,
+                  int Cout, bool relu, bool bn, int splits, cudaStream_t s) {
+  using T = typename E::T;
+  const dim3 grid(cdiv(9 * Cin, TILE), cdiv(Cout, TILE), splits);
+  const T* xp = static_cast<const T*>(x);
+  const T* dyp = static_cast<const T*>(dy);
+  const T* yp = static_cast<const T*>(y);
+  if (!bn)
+    fcbn_bwd_dw_kernel<E, IDENT><<<grid, THREADS, 0, s>>>(
+        xp, mu, inv, gamma, beta, dyp, yp, ds, dss, work, M, H, W, Cin, Cout,
+        splits);
+  else if (relu)
+    fcbn_bwd_dw_kernel<E, AFFINE_RELU><<<grid, THREADS, 0, s>>>(
+        xp, mu, inv, gamma, beta, dyp, yp, ds, dss, work, M, H, W, Cin, Cout,
+        splits);
+  else
+    fcbn_bwd_dw_kernel<E, AFFINE><<<grid, THREADS, 0, s>>>(
+        xp, mu, inv, gamma, beta, dyp, yp, ds, dss, work, M, H, W, Cin, Cout,
+        splits);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long nk = 9LL * Cin * Cout;
+  long long blocks = cdiv(nk, THREADS);
+  if (blocks > 4096) blocks = 4096;
+  fcbn_dw_finish_kernel<T><<<static_cast<int>(blocks), THREADS, 0, s>>>(
+      work, static_cast<T*>(dw), nk, splits);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. M = B * H * W. Every entry point
+// launches on ``stream`` without synchronising and returns the CUDA error
+// of its launches (0 on success). With bn = 0 the vectors mu, inv, gamma,
+// beta are not read and may be null.
+
+// Row-tile runs of fcbn_fwd (Q = Cout) and fcbn_bwd_dx (Q = Cin): the
+// wrapper sizes their (2, splits, Q) double workspace with it.
+extern "C" int fcbn_row_splits(long long M, int Q) { return row_splits(M, Q); }
+
+// Contracted chunks of fcbn_bwd_dw: its (splits, Cout, 9 * Cin) f32
+// workspace.
+extern "C" int fcbn_dw_splits(long long M, int Cin, int Cout, int dtype) {
+  return dw_splits(M, Cout, 9 * Cin,
+                   dtype == 0 ? F32Engine::BR : Bf16Engine::BR);
+}
+
+extern "C" int fcbn_fwd(const void* x, const void* w, const void* mu,
+                        const void* inv, const void* gamma, const void* beta,
+                        void* y, void* work, void* sum, void* sumsq,
+                        long long M, int H, int W, int Cin, int Cout,
+                        int dtype, int relu, int bn, int splits,
+                        void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* m = static_cast<const float*>(mu);
+  const float* i = static_cast<const float*>(inv);
+  const float* g = static_cast<const float*>(gamma);
+  const float* b = static_cast<const float*>(beta);
+  double* part = static_cast<double*>(work);
+  float* s0 = static_cast<float*>(sum);
+  float* s1 = static_cast<float*>(sumsq);
+  return dtype == 0
+             ? launch_fwd<F32Engine>(x, w, m, i, g, b, y, part, s0, s1, M, H,
+                                     W, Cin, Cout, relu != 0, bn != 0, splits,
+                                     s)
+             : launch_fwd<Bf16Engine>(x, w, m, i, g, b, y, part, s0, s1, M,
+                                      H, W, Cin, Cout, relu != 0, bn != 0,
+                                      splits, s);
+}
+
+// dbeta, dgamma and work are not written with bn = 0 and may be null.
+extern "C" int fcbn_bwd_dx(const void* dy, const void* y, const void* ds,
+                           const void* dss, const void* w, const void* x,
+                           const void* mu, const void* inv,
+                           const void* gamma, const void* beta, void* dx,
+                           void* work, void* dbeta, void* dgamma, long long M,
+                           int H, int W, int Cin, int Cout, int dtype,
+                           int relu, int bn, int splits, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* d0 = static_cast<const float*>(ds);
+  const float* d1 = static_cast<const float*>(dss);
+  const float* m = static_cast<const float*>(mu);
+  const float* i = static_cast<const float*>(inv);
+  const float* g = static_cast<const float*>(gamma);
+  const float* b = static_cast<const float*>(beta);
+  double* part = static_cast<double*>(work);
+  float* db = static_cast<float*>(dbeta);
+  float* dg = static_cast<float*>(dgamma);
+  return dtype == 0
+             ? launch_bwd_dx<F32Engine>(dy, y, d0, d1, w, x, m, i, g, b, dx,
+                                        part, db, dg, M, H, W, Cin, Cout,
+                                        relu != 0, bn != 0, splits, s)
+             : launch_bwd_dx<Bf16Engine>(dy, y, d0, d1, w, x, m, i, g, b, dx,
+                                         part, db, dg, M, H, W, Cin, Cout,
+                                         relu != 0, bn != 0, splits, s);
+}
+
+extern "C" int fcbn_bwd_dw(const void* x, const void* mu, const void* inv,
+                           const void* gamma, const void* beta,
+                           const void* dy, const void* y, const void* ds,
+                           const void* dss, void* work, void* dw, long long M,
+                           int H, int W, int Cin, int Cout, int dtype,
+                           int relu, int bn, int splits, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* m = static_cast<const float*>(mu);
+  const float* i = static_cast<const float*>(inv);
+  const float* g = static_cast<const float*>(gamma);
+  const float* b = static_cast<const float*>(beta);
+  const float* d0 = static_cast<const float*>(ds);
+  const float* d1 = static_cast<const float*>(dss);
+  float* part = static_cast<float*>(work);
+  return dtype == 0
+             ? launch_bwd_dw<F32Engine>(x, m, i, g, b, dy, y, d0, d1, part,
+                                        dw, M, H, W, Cin, Cout, relu != 0,
+                                        bn != 0, splits, s)
+             : launch_bwd_dw<Bf16Engine>(x, m, i, g, b, dy, y, d0, d1, part,
+                                         dw, M, H, W, Cin, Cout, relu != 0,
+                                         bn != 0, splits, s);
+}
+
+extern "C" const char* fcbn_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

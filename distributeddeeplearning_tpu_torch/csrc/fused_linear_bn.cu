@@ -35,6 +35,8 @@
 //   (the BatchNorm prologue, or dY), rounded to the storage type and
 //   stored in shared memory. The next step's loads are issued before the
 //   current step's products.
+//   The tile product and the three kernels' bodies live in bn_gemm.cuh,
+//   shared with the 3x3 kernels of fused_conv_bn.cu.
 // - bf16: tensor cores by mma.sync.m16n8k16 with f32 accumulators, 8 warps
 //   of 64 x 32, two blocks an SM. f32: FMA on the CUDA cores (no TF32),
 //   8 x 8 outputs a thread.
@@ -59,468 +61,9 @@
 // reference's order of operations, so no multiply-add is contracted there
 // and they round as the plain PyTorch versions do.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "bn_gemm.cuh"
 
 namespace {
-
-constexpr int THREADS = 256;
-constexpr int TILE = 128;           // output tile: TILE x TILE
-constexpr int GROUPS = 16;          // thread row groups sharing a column
-constexpr int TARGET_BLOCKS = 1024; // blocks a reduction over M aims for
-constexpr int MIN_STEPS = 8;        // dw: contracted steps a chunk at least
-constexpr int RED_BYTES = 2 * GROUPS * TILE * 8;
-constexpr int FIN_X = 32;           // column finish: channels per block
-constexpr int FIN_Y = 32;           //                split groups per block
-static_assert(THREADS == 2 * TILE, "two threads a column in column_accumulate");
-
-// Source operand kinds: how an element is transformed on its way to
-// shared memory.
-enum Kind { IDENT = 0, AFFINE = 1, AFFINE_RELU = 2, DY = 3 };
-
-template <typename T> struct Vec;
-template <> struct Vec<float> {
-  using Raw = float4;
-  static constexpr int N = 4;
-};
-template <> struct Vec<__nv_bfloat16> {
-  using Raw = uint4;
-  static constexpr int N = 8;
-};
-
-__device__ __forceinline__ void unpack(const float4& r, float (&v)[4]) {
-  v[0] = r.x; v[1] = r.y; v[2] = r.z; v[3] = r.w;
-}
-
-__device__ __forceinline__ void unpack(const uint4& r, float (&v)[8]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-
-template <typename T> __device__ __forceinline__ float round_to(float v);
-template <> __device__ __forceinline__ float round_to<float>(float v) {
-  return v;
-}
-template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-__device__ __forceinline__ void load2(const float* p, float (&v)[2]) {
-  const float2 f = *reinterpret_cast<const float2*>(p);
-  v[0] = f.x; v[1] = f.y;
-}
-__device__ __forceinline__ void load2(const __nv_bfloat16* p, float (&v)[2]) {
-  const float2 f =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-  v[0] = f.x; v[1] = f.y;
-}
-
-__device__ __forceinline__ void from_float(float* p, float v) { *p = v; }
-__device__ __forceinline__ void from_float(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
-// A row-major (rows, cols) source of an operand tile and its transform.
-// The per-channel vectors are indexed by the source's column: AFFINE(_RELU)
-// v0..v3 = mu, inv, gamma, beta; DY v0, v1 = ds, dss and y the second
-// (rows, cols) input.
-template <typename T, int KIND>
-struct Source {
-  using Raw = typename Vec<T>::Raw;
-  static constexpr int V = Vec<T>::N;
-  const T* a;
-  const T* y;
-  const float* v0;
-  const float* v1;
-  const float* v2;
-  const float* v3;
-  long long rows;
-  int cols;
-
-  struct Frag {
-    Raw a, y;
-    int col;
-    bool ok;
-  };
-
-  // V elements of one row from column ``col`` (a multiple of V; cols is a
-  // multiple of 8, so a vector is in or out whole).
-  __device__ __forceinline__ void fetch(long long row, int col,
-                                        Frag& f) const {
-    f.col = col;
-    f.ok = row < rows && col < cols;
-    if (f.ok) {
-      const long long off = row * cols + col;
-      f.a = *reinterpret_cast<const Raw*>(a + off);
-      if constexpr (KIND == DY) f.y = *reinterpret_cast<const Raw*>(y + off);
-    }
-  }
-
-  // The transformed values, rounded to T; 0 outside the source.
-  __device__ __forceinline__ void apply(const Frag& f, float (&out)[V]) const {
-    if (!f.ok) {
-#pragma unroll
-      for (int j = 0; j < V; ++j) out[j] = 0.f;
-      return;
-    }
-    unpack(f.a, out);
-    if constexpr (KIND == DY) {
-      float yv[V];
-      unpack(f.y, yv);
-#pragma unroll
-      for (int j = 0; j < V; ++j) {
-        const int c = f.col + j;
-        const float twice_y_dss = __fmul_rn(__fmul_rn(2.f, yv[j]), v1[c]);
-        out[j] = round_to<T>(__fadd_rn(__fadd_rn(out[j], v0[c]), twice_y_dss));
-      }
-    } else if constexpr (KIND != IDENT) {
-#pragma unroll
-      for (int j = 0; j < V; ++j) {
-        const int c = f.col + j;
-        float t = __fadd_rn(__fmul_rn(__fsub_rn(out[j], v0[c]),
-                                      __fmul_rn(v1[c], v2[c])),
-                            v3[c]);
-        if constexpr (KIND == AFFINE_RELU) t = fmaxf(t, 0.f);
-        out[j] = round_to<T>(t);
-      }
-    }
-  }
-};
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// bf16 tile product on the tensor cores. Each operand tile is TILE rows
-// (its output index) x BR (the contracted index), stored [TILE][PITCH] with
-// the contracted index contiguous, as mma's row-major A and column-major B
-// fragments want. 8 warps: 2 along the first output index, 4 along the
-// second, each 64 x 32 outputs of m16n8 tiles.
-struct Bf16Engine {
-  using T = __nv_bfloat16;
-  static constexpr int BR = 32;
-  static constexpr int PITCH = BR + 8;  // 80-byte rows: fragment loads
-  static constexpr int WORDS = PITCH / 2;  // hit 32 distinct banks
-  static constexpr int TILE_ELEMS = TILE * PITCH;
-  static constexpr int SMEM = 2 * TILE_ELEMS * 2;
-  static constexpr int SLOTS = 4;  // column pairs a thread owns
-  // Two blocks an SM (registers capped at 128, a few spilled) ran the
-  // ResNet-50 shapes faster than one block with the 130-172 registers the
-  // kernels take uncapped.
-  static constexpr int MIN_BLOCKS = 2;
-
-  float acc[4][4][4];
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
-  }
-
-  // TRANS false: the source's rows are the tile's rows, each thread loads
-  // 8 contracted values of one row. TRANS true: the source's rows are the
-  // contracted index; each thread loads 8 tile rows of two consecutive
-  // contracted rows and stores them as 8 bf16 pairs.
-  template <class Src, bool TRANS>
-  struct Loader {
-    typename Src::Frag f[2];
-
-    __device__ __forceinline__ void fetch(const Src& s, long long r0,
-                                          long long k0) {
-      const int tid = threadIdx.x;
-      if (!TRANS) {
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          s.fetch(r0 + tid / 4 + 64 * i,
-                  static_cast<int>(k0) + (tid % 4) * 8, f[i]);
-      } else {
-        const int lane = tid & 31, warp = tid >> 5;
-        const int kp = (lane >> 1) & 15, rv = (lane & 1) + 2 * warp;
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          s.fetch(k0 + 2 * kp + i, static_cast<int>(r0) + rv * 8, f[i]);
-      }
-    }
-
-    __device__ __forceinline__ void commit(const Src& s, T* tile) const {
-      const int tid = threadIdx.x;
-      if (!TRANS) {
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          float v[8];
-          s.apply(f[i], v);
-          uint4 u;
-          __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-            h[q] = __floats2bfloat162_rn(v[2 * q], v[2 * q + 1]);
-          *reinterpret_cast<uint4*>(tile + (tid / 4 + 64 * i) * PITCH +
-                                    (tid % 4) * 8) = u;
-        }
-      } else {
-        const int lane = tid & 31, warp = tid >> 5;
-        const int kp = (lane >> 1) & 15, rv = (lane & 1) + 2 * warp;
-        float lo[8], hi[8];
-        s.apply(f[0], lo);
-        s.apply(f[1], hi);
-        uint32_t* t32 = reinterpret_cast<uint32_t*>(tile);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          __nv_bfloat162 h = __floats2bfloat162_rn(lo[j], hi[j]);
-          t32[(rv * 8 + j) * WORDS + kp] = *reinterpret_cast<uint32_t*>(&h);
-        }
-      }
-    }
-  };
-
-  __device__ __forceinline__ void compute(const T* sa, const T* sb) {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int g = lane >> 2, t = lane & 3, wp = warp >> 2, wq = warp & 3;
-    const uint32_t* a32 = reinterpret_cast<const uint32_t*>(sa);
-    const uint32_t* b32 = reinterpret_cast<const uint32_t*>(sb);
-#pragma unroll
-    for (int ks = 0; ks < BR / 16; ++ks) {
-      uint32_t a[4][4], b[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        const int base = (wp * 64 + mi * 16 + g) * WORDS + ks * 8 + t;
-        a[mi][0] = a32[base];
-        a[mi][1] = a32[base + 8 * WORDS];
-        a[mi][2] = a32[base + 4];
-        a[mi][3] = a32[base + 8 * WORDS + 4];
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int base = (wq * 32 + ni * 8 + g) * WORDS + ks * 8 + t;
-        b[ni][0] = b32[base];
-        b[ni][1] = b32[base + 4];
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], a[mi], b[ni]);
-    }
-  }
-
-  // f(p, q, slot, v(p, q), v(p, q + 1)) for each pair of adjacent outputs
-  // the thread owns, p and q local to the tile.
-  template <class F>
-  __device__ __forceinline__ void for_pairs(F&& f) const {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int g = lane >> 2, t = lane & 3, wp = warp >> 2, wq = warp & 3;
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          f(wp * 64 + mi * 16 + g + 8 * h, wq * 32 + ni * 8 + 2 * t, ni,
-            acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
-  }
-
-  static __device__ __forceinline__ int slot_col(int slot) {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    return (warp & 3) * 32 + slot * 8 + 2 * (lane & 3);
-  }
-
-  static __device__ __forceinline__ int group() {
-    return (threadIdx.x >> 7) * 8 + ((threadIdx.x & 31) >> 2);
-  }
-};
-
-// f32 tile product on the CUDA cores. Tiles are stored [BR][PITCH] with the
-// output index contiguous; a thread owns rows ty*4 + {0..3}, 64 + ty*4 +
-// {0..3} and the same of columns by tx.
-struct F32Engine {
-  using T = float;
-  static constexpr int BR = 16;
-  static constexpr int PITCH = TILE + 4;
-  static constexpr int TILE_ELEMS = BR * PITCH;
-  static constexpr int SMEM = 2 * TILE_ELEMS * 4;
-  static constexpr int SLOTS = 4;
-  static constexpr int MIN_BLOCKS = 1;
-
-  float acc[8][8];
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  }
-
-  template <class Src, bool TRANS>
-  struct Loader {
-    typename Src::Frag f[2];
-
-    __device__ __forceinline__ void fetch(const Src& s, long long r0,
-                                          long long k0) {
-      const int tid = threadIdx.x;
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        if (!TRANS)
-          s.fetch(r0 + tid / 4 + 64 * i,
-                  static_cast<int>(k0) + (tid % 4) * 4, f[i]);
-        else
-          s.fetch(k0 + tid / 32 + 8 * i,
-                  static_cast<int>(r0) + (tid % 32) * 4, f[i]);
-      }
-    }
-
-    __device__ __forceinline__ void commit(const Src& s, T* tile) const {
-      const int tid = threadIdx.x;
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        float v[4];
-        s.apply(f[i], v);
-        if (!TRANS) {
-          const int r = tid / 4 + 64 * i, k = (tid % 4) * 4;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) tile[(k + j) * PITCH + r] = v[j];
-        } else {
-          *reinterpret_cast<float4*>(tile + (tid / 32 + 8 * i) * PITCH +
-                                     (tid % 32) * 4) =
-              make_float4(v[0], v[1], v[2], v[3]);
-        }
-      }
-    }
-  };
-
-  __device__ __forceinline__ void compute(const T* sa, const T* sb) {
-    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-    for (int k = 0; k < BR; ++k) {
-      const float* ra = sa + k * PITCH + ty * 4;
-      const float* rb = sb + k * PITCH + tx * 4;
-      const float4 a0 = *reinterpret_cast<const float4*>(ra);
-      const float4 a1 = *reinterpret_cast<const float4*>(ra + 64);
-      const float4 b0 = *reinterpret_cast<const float4*>(rb);
-      const float4 b1 = *reinterpret_cast<const float4*>(rb + 64);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-  }
-
-  template <class F>
-  __device__ __forceinline__ void for_pairs(F&& f) const {
-    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int s = 0; s < SLOTS; ++s)
-        f((i < 4 ? 0 : 64) + ty * 4 + (i & 3), slot_col_of(tx, s), s,
-          acc[i][2 * s], acc[i][2 * s + 1]);
-  }
-
-  static __device__ __forceinline__ int slot_col_of(int tx, int slot) {
-    return (slot < 2 ? 0 : 64) + tx * 4 + 2 * (slot & 1);
-  }
-
-  static __device__ __forceinline__ int slot_col(int slot) {
-    return slot_col_of(threadIdx.x % 16, slot);
-  }
-
-  static __device__ __forceinline__ int group() { return threadIdx.x / 16; }
-};
-
-// acc += A @ B^T over the contracted range [r_begin, r_end) in BR steps:
-// A's tile rows from a0, B's from b0. The next step's global loads are in
-// flight while the current step's products run.
-template <bool TA, bool TB, class E, class SA, class SB>
-__device__ __forceinline__ void gemm(E& e, const SA& a, long long a0,
-                                     const SB& b, long long b0,
-                                     long long r_begin, long long r_end,
-                                     typename E::T* sa, typename E::T* sb) {
-  typename E::template Loader<SA, TA> la;
-  typename E::template Loader<SB, TB> lb;
-  if (r_begin < r_end) {
-    la.fetch(a, a0, r_begin);
-    lb.fetch(b, b0, r_begin);
-  }
-  for (long long r = r_begin; r < r_end; r += E::BR) {
-    la.commit(a, sa);
-    lb.commit(b, sb);
-    __syncthreads();
-    if (r + E::BR < r_end) {
-      la.fetch(a, a0, r + E::BR);
-      lb.fetch(b, b0, r + E::BR);
-    }
-    e.compute(sa, sb);
-    __syncthreads();
-  }
-}
-
-// Adds one tile's two column sums (c0, c1: per owned column pair, over the
-// thread's rows) over the 16 thread row groups, in a fixed order, to
-// ``total`` of thread (which, q) = (tid / TILE, tid % TILE): column q's sum
-// c0 (which 0) or c1 (which 1). Only this tile's sums are live in
-// registers, so the GEMM's main loop keeps its registers. Shared memory is
-// free for reuse on return.
-template <class E>
-__device__ __forceinline__ void column_accumulate(
-    const double (&c0)[E::SLOTS][2], const double (&c1)[E::SLOTS][2],
-    double* red, double& total) {
-  const int grp = E::group();
-#pragma unroll
-  for (int s = 0; s < E::SLOTS; ++s) {
-    const int q = E::slot_col(s);
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      red[grp * TILE + q + c] = c0[s][c];
-      red[(GROUPS + grp) * TILE + q + c] = c1[s][c];
-    }
-  }
-  __syncthreads();
-  const int which = threadIdx.x / TILE, q = threadIdx.x % TILE;
-  for (int g = 0; g < GROUPS; ++g)
-    total += red[(which * GROUPS + g) * TILE + q];
-  __syncthreads();
-}
-
-// The block's column sums: thread (which, q)'s total to
-// part[which][split][q0 + q].
-__device__ __forceinline__ void column_write(double total, double* part,
-                                             int splits, int split, int q0,
-                                             int Q) {
-  const int which = threadIdx.x / TILE, q = threadIdx.x % TILE;
-  if (q0 + q < Q)
-    part[(static_cast<long long>(which) * splits + split) * Q + q0 + q] =
-        total;
-}
-
-// The run of row tiles of block ``split``: [begin, end).
-__device__ __forceinline__ void tile_run(long long M, int splits, int split,
-                                         long long& begin, long long& end) {
-  const long long tiles = (M + TILE - 1) / TILE;
-  const long long per = (tiles + splits - 1) / splits;
-  begin = split * per;
-  end = begin + per < tiles ? begin + per : tiles;
-}
 
 template <class E, int AK>
 __global__ void __launch_bounds__(THREADS, E::MIN_BLOCKS)
@@ -532,37 +75,11 @@ flbn_fwd_kernel(const typename E::T* __restrict__ x,
                 double* __restrict__ part, long long M, int K, int N,
                 int splits) {
   using T = typename E::T;
-  __shared__ __align__(16) unsigned char smem[E::SMEM > RED_BYTES ? E::SMEM
-                                                                  : RED_BYTES];
-  T* sa = reinterpret_cast<T*>(smem);
-  T* sb = sa + E::TILE_ELEMS;
+  __shared__ __align__(16) unsigned char smem[smem_bytes<E>()];
   const Source<T, AK> A{x, nullptr, mu, inv, gamma, beta, M, K};
   const Source<T, IDENT> B{w, nullptr, nullptr, nullptr, nullptr, nullptr,
                            N, K};
-  const int q0 = blockIdx.x * TILE, split = blockIdx.y;
-  long long begin, end;
-  tile_run(M, splits, split, begin, end);
-  double total = 0.0;
-  for (long long tile = begin; tile < end; ++tile) {
-    const long long p0 = tile * TILE;
-    E e;
-    e.zero();
-    gemm<false, false>(e, A, p0, B, q0, 0, K, sa, sb);
-    double s[E::SLOTS][2] = {}, ss[E::SLOTS][2] = {};
-    e.for_pairs([&](int p, int q, int slot, float v0, float v1) {
-      const long long m = p0 + p;
-      const int n = q0 + q;
-      if (m >= M || n >= N) return;
-      const float y0 = round_to<T>(v0), y1 = round_to<T>(v1);
-      store2(y + m * N + n, y0, y1);
-      s[slot][0] += y0;
-      s[slot][1] += y1;
-      ss[slot][0] += static_cast<double>(y0) * y0;
-      ss[slot][1] += static_cast<double>(y1) * y1;
-    });
-    column_accumulate<E>(s, ss, reinterpret_cast<double*>(smem), total);
-  }
-  column_write(total, part, splits, split, q0, N);
+  fwd_body<E>(A, B, y, part, M, K, N, splits, smem);
 }
 
 template <class E, bool BN, bool RELU>
@@ -579,52 +96,13 @@ flbn_bwd_dx_kernel(const typename E::T* __restrict__ dy,
                    typename E::T* __restrict__ dx, double* __restrict__ part,
                    long long M, int K, int N, int splits) {
   using T = typename E::T;
-  __shared__ __align__(16) unsigned char smem[E::SMEM > RED_BYTES ? E::SMEM
-                                                                  : RED_BYTES];
-  T* sa = reinterpret_cast<T*>(smem);
-  T* sb = sa + E::TILE_ELEMS;
+  __shared__ __align__(16) unsigned char smem[smem_bytes<E>()];
   const Source<T, DY> A{dy, yv, ds, dss, nullptr, nullptr, M, N};
   // w (N, K) read across its rows: the tile's rows are k.
   const Source<T, IDENT> B{w, nullptr, nullptr, nullptr, nullptr, nullptr,
                            N, K};
-  const int q0 = blockIdx.x * TILE, split = blockIdx.y;
-  long long begin, end;
-  tile_run(M, splits, split, begin, end);
-  double total = 0.0;
-  for (long long tile = begin; tile < end; ++tile) {
-    const long long p0 = tile * TILE;
-    E e;
-    e.zero();
-    gemm<false, true>(e, A, p0, B, q0, 0, N, sa, sb);
-    double db[E::SLOTS][2] = {}, dg[E::SLOTS][2] = {};
-    e.for_pairs([&](int p, int q, int slot, float v0, float v1) {
-      const long long m = p0 + p;
-      const int k = q0 + q;
-      if (m >= M || k >= K) return;
-      float o[2] = {v0, v1};
-      if (BN) {
-        float xv[2];
-        load2(x + m * K + k, xv);
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int kc = k + c;
-          const float xh = __fmul_rn(__fsub_rn(xv[c], mu[kc]), inv[kc]);
-          float dz = o[c];
-          if (RELU) {
-            const float z = __fadd_rn(__fmul_rn(xh, gamma[kc]), beta[kc]);
-            dz = z > 0.f ? dz : 0.f;
-          }
-          o[c] = __fmul_rn(dz, __fmul_rn(gamma[kc], inv[kc]));
-          db[slot][c] += dz;
-          dg[slot][c] += static_cast<double>(dz) * xh;
-        }
-      }
-      store2(dx + m * K + k, o[0], o[1]);
-    });
-    if (BN)
-      column_accumulate<E>(db, dg, reinterpret_cast<double*>(smem), total);
-  }
-  if (BN) column_write(total, part, splits, split, q0, K);
+  bwd_dx_body<E, BN, RELU>(A, B, x, mu, inv, gamma, beta, dx, part, M, K, N,
+                           splits, smem);
 }
 
 template <class E, int XK>
@@ -641,27 +119,11 @@ flbn_bwd_dw_kernel(const typename E::T* __restrict__ x,
                    long long M, int K, int N, int splits) {
   using T = typename E::T;
   __shared__ __align__(16) unsigned char smem[E::SMEM];
-  T* sa = reinterpret_cast<T*>(smem);
-  T* sb = sa + E::TILE_ELEMS;
   // Both read across their rows (the contracted index is M): the A tile's
   // rows are n, the B tile's k.
   const Source<T, DY> A{dy, yv, ds, dss, nullptr, nullptr, M, N};
   const Source<T, XK> B{x, nullptr, mu, inv, gamma, beta, M, K};
-  const int q0 = blockIdx.x * TILE, p0 = blockIdx.y * TILE;
-  const int split = blockIdx.z;
-  const long long steps = (M + E::BR - 1) / E::BR;
-  const long long per = (steps + splits - 1) / splits;
-  const long long r_begin = split * per * E::BR;
-  const long long r_end = r_begin + per * E::BR < M ? r_begin + per * E::BR : M;
-  E e;
-  e.zero();
-  gemm<true, true>(e, A, p0, B, q0, r_begin, r_end, sa, sb);
-  float* out = work + static_cast<long long>(split) * N * K;
-  e.for_pairs([&](int p, int q, int, float v0, float v1) {
-    const int n = p0 + p, k = q0 + q;
-    if (n < N && k < K)
-      store2(out + static_cast<long long>(n) * K + k, v0, v1);
-  });
+  bwd_dw_body<E>(A, B, work, M, N, K, splits, smem);
 }
 
 // dw = the (splits, N*K) partials summed in order, rounded to T.
@@ -669,14 +131,7 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS)
 flbn_dw_finish_kernel(const float* __restrict__ work, T* __restrict__ dw,
                       long long NK, int splits) {
-  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < NK; i += step) {
-    float s = 0.f;
-    for (int sp = 0; sp < splits; ++sp) s = __fadd_rn(s, work[sp * NK + i]);
-    from_float(dw + i, s);
-  }
+  dw_finish_body(work, dw, NK, splits);
 }
 
 // out0[c] = sum over splits of part[0][s][c], out1 of part[1][s][c], in a
@@ -685,28 +140,7 @@ __global__ void __launch_bounds__(FIN_X * FIN_Y)
 flbn_column_finish_kernel(const double* __restrict__ part,
                           float* __restrict__ out0, float* __restrict__ out1,
                           int C, int splits) {
-  __shared__ double sh[2][FIN_Y][FIN_X + 1];
-  const int c = blockIdx.x * FIN_X + threadIdx.x;
-  double a = 0.0, b = 0.0;
-  if (c < C) {
-    const double* p0 = part + c;
-    const double* p1 = part + static_cast<long long>(splits) * C + c;
-    for (int s = threadIdx.y; s < splits; s += FIN_Y) {
-      a += p0[static_cast<long long>(s) * C];
-      b += p1[static_cast<long long>(s) * C];
-    }
-  }
-  sh[0][threadIdx.y][threadIdx.x] = a;
-  sh[1][threadIdx.y][threadIdx.x] = b;
-  __syncthreads();
-  if (threadIdx.y != 0 || c >= C) return;
-  a = b = 0.0;
-  for (int r = 0; r < FIN_Y; ++r) {
-    a += sh[0][r][threadIdx.x];
-    b += sh[1][r][threadIdx.x];
-  }
-  out0[c] = static_cast<float>(a);
-  out1[c] = static_cast<float>(b);
+  column_finish_body(part, out0, out1, C, splits);
 }
 
 int column_finish(const double* part, float* out0, float* out1, int C,
@@ -714,29 +148,6 @@ int column_finish(const double* part, float* out0, float* out1, int C,
   flbn_column_finish_kernel<<<(C + FIN_X - 1) / FIN_X, dim3(FIN_X, FIN_Y), 0,
                               s>>>(part, out0, out1, C, splits);
   return cudaGetLastError();
-}
-
-long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
-
-// Row-tile runs of the forward and dx kernels: about TARGET_BLOCKS blocks,
-// at most one a row tile.
-int row_splits(long long M, int Q) {
-  const long long tiles = cdiv(M, TILE);
-  long long s = cdiv(TARGET_BLOCKS, cdiv(Q, TILE));
-  if (s > tiles) s = tiles;
-  if (s < 1) s = 1;
-  return static_cast<int>(cdiv(tiles, cdiv(tiles, s)));
-}
-
-// Contracted chunks of dw: about TARGET_BLOCKS blocks, each chunk at least
-// MIN_STEPS steps deep.
-int dw_splits(long long M, int N, int K, int br) {
-  const long long steps = cdiv(M, br);
-  long long s = cdiv(TARGET_BLOCKS, cdiv(N, TILE) * cdiv(K, TILE));
-  long long cap = steps / MIN_STEPS;
-  if (cap < 1) cap = 1;
-  if (s > cap) s = cap;
-  return static_cast<int>(cdiv(steps, cdiv(steps, s)));
 }
 
 template <class E>

@@ -25,8 +25,10 @@ update, the result cast to the compute dtype, then the residual add and the
 ReLU. ``fused_block=True`` (bottleneck nets) builds every block as
 ``models/fused_block.py``'s ``FusedBottleneckBlock``, whose 1x1
 convolutions carry the BatchNorm work through the matmul kernels of
-``ops/fused_linear_bn.py``; ``fused_bn`` then governs the stem alone. All
-create the same variables.
+``ops/fused_linear_bn.py``; ``fused_bn`` then governs the stem alone.
+``fused_conv3=True`` (with ``fused_block`` only) also runs each stride-1
+block's 3x3 through the kernels of ``ops/fused_conv_bn.py``. All create the
+same variables.
 """
 
 from __future__ import annotations
@@ -166,21 +168,24 @@ class ResNet(nn.Module):
                  fused_block: bool = False, fused_conv3: bool = False,
                  bn_axis_name: Optional[str] = None):
         super().__init__()
-        _later("fused_conv3", fused_conv3, "the --fused-conv3 slice "
-               "(kernels #11-#13, ops/fused_conv_bn.py)")
         _later("bn_axis_name", bn_axis_name, "data parallelism "
                "(cross-replica BatchNorm statistics)")
+        if fused_block and block is not BottleneckBlock:
+            raise ValueError("fused_block requires bottleneck blocks "
+                             "(resnet50/101/152); basic blocks have no 1x1 "
+                             "convolutions to fuse")
+        if fused_conv3 and not fused_block:
+            raise ValueError("fused_conv3 extends fused_block (the 3x3 "
+                             "kernel shares its statistics plumbing); pass "
+                             "fused_block=True on a bottleneck net")
+        # fused_bn reaches the blocks it applies to; with fused_block it
+        # governs the stem alone.
+        per_block = {"fused_bn": fused_bn}
         if fused_block:
-            if block is not BottleneckBlock:
-                raise ValueError("fused_block requires bottleneck blocks "
-                                 "(resnet50/101/152); basic blocks have no "
-                                 "1x1 convolutions to fuse")
             from distributeddeeplearning_tpu_torch.models.fused_block import (
                 FusedBottleneckBlock)
             block = FusedBottleneckBlock
-        # fused_bn reaches the blocks it applies to; with fused_block it
-        # governs the stem alone.
-        per_block = {} if fused_block else {"fused_bn": fused_bn}
+            per_block = {"conv3_fused": fused_conv3}
         self.dtype = dtype
         self.conv_stem = Conv(3, width, 7, 2, 3, dtype=dtype)
         self.bn_stem = _norm(fused_bn)(width, dtype=dtype)

@@ -7,15 +7,16 @@ card.
         --batch-size 512 --synthetic --fused-bn --steps 100
     python -m distributeddeeplearning_tpu_torch.train --model resnet50 \
         --batch-size 512 --synthetic --fused-block --steps 100
+    python -m distributeddeeplearning_tpu_torch.train --model resnet50 \
+        --batch-size 512 --synthetic --fused-block --fused-conv3 --steps 100
 
 The counterpart of the root ``train.py`` for these models, with its flags
 where they apply. Data is synthetic token ids or images made on the device;
 weights start random from ``--seed``. Prints one JSON metric line per log
 step and a final ``{"summary": ...}`` line. Runs on the GPU unless
 ``--device cpu`` is given. Flags of later slices (data parallelism and
-SyncBN, accumulation, mixed precision with loss scaling, the fused 3x3
-conv+BatchNorm kernels, model parallelism, ZeRO) raise instead of being
-ignored.
+SyncBN, accumulation, mixed precision with loss scaling, model
+parallelism, ZeRO) raise instead of being ignored.
 """
 
 from __future__ import annotations
@@ -37,8 +38,6 @@ _LATER = (
     ("pp", 1, "pipeline parallelism"),
     ("precision", None, "mixed precision with dynamic loss scaling"),
     ("optimizer_sharding", None, "ZeRO optimizer sharding"),
-    ("fused_conv3", False, "the --fused-conv3 slice (the 3x3 conv+BatchNorm "
-     "kernels #11-#13)"),
     ("sync_bn", False, "data parallelism (cross-replica BatchNorm "
      "statistics)"),
     ("data_dir", None, "real token data"),
@@ -65,6 +64,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="bottleneck 1x1 convolutions with their BatchNorm "
                         "work through the CUDA matmul kernels "
                         "(ops/fused_linear_bn.py); ResNet-50/101/152")
+    p.add_argument("--fused-conv3", action="store_true",
+                   help="with --fused-block: each stride-1 3x3 with bn1's "
+                        "apply and bn2's statistics through the CUDA conv "
+                        "kernels (ops/fused_conv_bn.py)")
     p.add_argument("--attn", default=None, choices=["dense", "flash"],
                    help="attention impl: dense, or the flash kernels")
     p.add_argument("--optimizer", default=None,
@@ -116,8 +119,12 @@ def build_config(args: argparse.Namespace) -> TrainConfig:
             raise SystemExit(f"--{flag.replace('_', '-')}: {args.model} has "
                              f"no BatchNorm; the fused kernels serve the "
                              f"image models (ResNet)")
+    if args.fused_conv3 and not args.fused_block:
+        raise SystemExit("--fused-conv3 requires --fused-block (it extends "
+                         "the fused bottleneck's statistics plumbing)")
     cfg = TrainConfig(model=args.model, total_steps=args.steps,
-                      fused_bn=args.fused_bn, fused_block=args.fused_block)
+                      fused_bn=args.fused_bn, fused_block=args.fused_block,
+                      fused_conv3=args.fused_conv3)
     updates = {k: v for k, v in (
         ("global_batch_size", args.batch_size), ("dtype", args.dtype),
         ("seed", args.seed), ("log_every", args.log_every),

@@ -40,7 +40,8 @@ def build_state(config: TrainConfig, device
     if _is_image(config):
         kw: dict[str, Any] = {"num_classes": config.data.num_classes,
                               "fused_bn": config.fused_bn,
-                              "fused_block": config.fused_block}
+                              "fused_block": config.fused_block,
+                              "fused_conv3": config.fused_conv3}
     else:
         kw = {"seq_len": config.data.seq_len}
         if config.attention_impl:

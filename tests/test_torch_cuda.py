@@ -4,6 +4,8 @@ kernels, and a tiny GPT's training step on the card against the CPU; the
 four BatchNorm kernels, and a ``resnet_nano`` training step through them
 against the plain path on the CPU; the three matmul+BatchNorm kernels, and
 a ``resnet_nano`` ``fused_block`` training step through them against the
+CPU; the three 3x3 conv+BatchNorm kernels, and a ``resnet_nano``
+``fused_block`` + ``fused_conv3`` training step through them against the
 CPU.
 
 Every test here needs an NVIDIA GPU and skips without one. The file imports
@@ -21,6 +23,7 @@ from distributeddeeplearning_tpu_torch.models import gpt as tgpt
 from distributeddeeplearning_tpu_torch.models import resnet as tresnet
 from distributeddeeplearning_tpu_torch.ops import flash_attention as tfa
 from distributeddeeplearning_tpu_torch.ops import fused_batchnorm as tbn
+from distributeddeeplearning_tpu_torch.ops import fused_conv_bn as tfc
 from distributeddeeplearning_tpu_torch.ops import fused_linear_bn as tflb
 from distributeddeeplearning_tpu_torch.train.losses import (
     causal_lm_loss, smoothed_softmax_ce)
@@ -582,6 +585,191 @@ def test_resnet_fused_block_step_on_card_matches_cpu(cuda_device,
     # Two blocks, each with conv1, conv3 and a downsample.
     assert (tflb.fwd_launches, tflb.bwd_dx_launches,
             tflb.bwd_dw_launches) == tuple(c + 6 for c in counts)
+    assert losses[1] == pytest.approx(losses[0], rel=1e-5)
+    top = max(p.grad.abs().max().item() for p in cpu.parameters())
+    for (name, p), q in zip(cpu.named_parameters(), card.parameters()):
+        scale = max(p.grad.abs().max().item(), 1e-4 * top)
+        torch.testing.assert_close(q.grad.cpu(), p.grad, rtol=1e-4,
+                                   atol=1e-4 * scale, msg=name)
+    for (name, a), b in zip(cpu.named_buffers(), card.buffers()):
+        torch.testing.assert_close(b.cpu(), a, rtol=1e-5, atol=1e-5,
+                                   msg=name)
+
+
+# The 3x3 conv+BatchNorm kernels against their plain versions, held as the
+# matmul kernels are: y, dx per element of the (pixels, channels) view and
+# dw per element of its (Cout, 9 * Cin) view, within 1e-5 of the largest
+# |ref| of the element's column (a bf16 output one more ulp of itself);
+# the column sums within 1e-5 of their sum of |terms| (the forward's plus
+# the column's sum of |y - y_ref| and |y^2 - y_ref^2|).
+def _rows(t):
+    return t.reshape(-1, t.shape[-1])
+
+
+def _dw_rows(dw):
+    return dw.permute(0, 2, 3, 1).reshape(dw.shape[0], -1)
+
+
+def _fcbn_inputs(device, dtype, b, h, w, cin, cout, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=device) * scale
+
+    x = rand(b, h, w, cin).to(dtype)
+    wt = rand(cout, cin, 3, 3, scale=(9 * cin) ** -0.5).to(
+        dtype, memory_format=torch.channels_last)
+    vecs = (rand(cin, scale=0.3), rand(cin).abs() + 0.5,
+            rand(cin).abs() + 0.5, rand(cin, scale=0.3))
+    dy, y = rand(b, h, w, cout).to(dtype), rand(b, h, w, cout).to(dtype)
+    return x, wt, vecs, dy, y, rand(cout, scale=0.1), rand(cout, scale=0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("variant", list(FLBN_VARIANTS))
+@pytest.mark.parametrize("b,h,w,cin,cout", [(3, 7, 7, 24, 40),
+                                            (4, 9, 13, 64, 32),
+                                            (2, 28, 28, 136, 144),
+                                            (16, 56, 56, 64, 64)])
+def test_conv_bn_kernels_match_plain(cuda_device, monkeypatch, dtype,
+                                     variant, b, h, w, cin, cout):
+    """#11-#13 against their plain versions: W = 7 and odd sides (a row
+    tile spans several images, and each tap must stay in its own image),
+    Cin != Cout, channels above one 128-wide tile and not a multiple of it,
+    and stage 1's widths. The plain versions' convolutions in full f32
+    (TF32 off), as the kernels compute."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    bn, relu = FLBN_VARIANTS[variant]
+    x, wt, vecs, dy, y, ds, dss = _fcbn_inputs(cuda_device, dtype, b, h, w,
+                                               cin, cout, b + h + cin)
+    mu, inv, gamma, beta = vecs
+    counts = (tfc.fwd_launches, tfc.bwd_dx_launches, tfc.bwd_dw_launches)
+
+    out, s, ss = tfc.conv3x3_bn_fwd(x, *vecs, wt, relu=relu, bn=bn)
+    ref, rs, rss = tfc.conv3x3_bn_fwd_reference(x, *vecs, wt, relu=relu,
+                                                bn=bn)
+    assert out.dtype == dtype and out.shape == (b, h, w, cout)
+    _flbn_close(_rows(out), _rows(ref))
+    rf, of = _rows(ref).float(), _rows(out).float()
+    _sums_close(s, rs, rf.abs().sum(dim=0), (of - rf).abs().sum(dim=0))
+    _sums_close(ss, rss, (rf * rf).sum(dim=0),
+                (of * of - rf * rf).abs().sum(dim=0))
+
+    dx, db, dg = tfc.conv3x3_bn_bwd_dx(dy, y, ds, dss, wt, x, *vecs,
+                                       relu=relu, bn=bn)
+    rdx, rdb, rdg = tfc.conv3x3_bn_bwd_dx_reference(dy, y, ds, dss, wt, x,
+                                                    *vecs, relu=relu, bn=bn)
+    _flbn_close(_rows(dx), _rows(rdx))
+    dyt = tfc._dy_total(dy, y, ds, dss)
+    if bn:
+        xh = (x.float() - mu) * inv
+        da = tfc._conv(dyt, wt.flip(2, 3).transpose(0, 1))
+        dz = torch.where(xh * gamma + beta > 0, da, 0.0) if relu else da
+        _sums_close(db, rdb, _rows(dz).abs().sum(dim=0))
+        _sums_close(dg, rdg, _rows(dz * xh).abs().sum(dim=0))
+    else:
+        assert db is None and dg is None
+
+    dw = tfc.conv3x3_bn_bwd_dw(x, *vecs, dy, y, ds, dss, relu=relu, bn=bn)
+    rdw = tfc.conv3x3_bn_bwd_dw_reference(x, *vecs, dy, y, ds, dss,
+                                          relu=relu, bn=bn)
+    assert dw.shape == (cout, cin, 3, 3) and dw.dtype == dtype
+    _flbn_close(_dw_rows(dw), _dw_rows(rdw))
+    # A dw that lacks one of the kernel's chunks of M fails the limit.
+    m = b * h * w
+    chunk = -(-m // tfc.dw_splits(m, cin, cout, dtype))
+    r0 = min(m // 2, m - chunk)
+    keep = torch.zeros(m, 1, device=cuda_device)
+    keep[r0:r0 + chunk] = 1.0
+    a = tfc._prologue(x, *vecs, relu, bn).float().permute(0, 3, 1, 2)
+    lost = torch.nn.grad.conv2d_weight(
+        a, dw.shape, (_rows(dyt).float() * keep).view(b, h, w, cout)
+        .permute(0, 3, 1, 2), padding=1)
+    with pytest.raises(AssertionError):
+        _flbn_close(_dw_rows((dw.float() - lost).to(dtype)), _dw_rows(rdw))
+    torch.cuda.synchronize()
+    assert (tfc.fwd_launches, tfc.bwd_dx_launches,
+            tfc.bwd_dw_launches) == tuple(c + 1 for c in counts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_bn_reductions_repeat_bitwise(cuda_device, dtype):
+    """The sums of #11 and #12 and the whole of #13 reduce over M without
+    atomics in a fixed order: two runs agree bit for bit."""
+    x, wt, vecs, dy, y, ds, dss = _fcbn_inputs(cuda_device, dtype, 32, 28,
+                                               28, 128, 128, 5)
+    runs = []
+    for _ in range(2):
+        _, s, ss = tfc.conv3x3_bn_fwd(x, *vecs, wt, relu=True, bn=True)
+        _, db, dg = tfc.conv3x3_bn_bwd_dx(dy, y, ds, dss, wt, x, *vecs,
+                                          relu=True, bn=True)
+        dw = tfc.conv3x3_bn_bwd_dw(x, *vecs, dy, y, ds, dss, relu=True,
+                                   bn=True)
+        runs.append((s, ss, db, dg, dw))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["nchw_contiguous", "strided",
+                                  "c_not_mult_8", "unaligned", "half"])
+def test_conv_bn_wrapper_raises_rather_than_copying(cuda_device, case):
+    x = torch.randn(2, 8, 8, 64, device=cuda_device)
+    w = torch.randn(64, 64, 3, 3, device=cuda_device)
+    bad = {"nchw_contiguous": lambda: torch.randn(
+               2, 64, 8, 8, device=cuda_device).permute(0, 2, 3, 1),
+           "strided": lambda: torch.randn(2, 8, 8, 128,
+                                          device=cuda_device)[..., :64],
+           "c_not_mult_8": lambda: x[..., :12].contiguous(),
+           "unaligned": lambda: torch.randn(2 * 8 * 8 * 64 + 1,
+                                            device=cuda_device)[1:].view(
+                                                2, 8, 8, 64),
+           "half": lambda: x.half()}[case]()
+    wb = w[:, :12].contiguous() if case == "c_not_mult_8" else (
+        w.half() if case == "half" else w)
+    before = tfc.fwd_launches
+    with pytest.raises((ValueError, TypeError)):
+        tfc.conv3x3_bn_fwd(bad, None, None, None, None, wb, relu=False,
+                           bn=False)
+    assert tfc.fwd_launches == before
+
+
+@pytest.mark.cuda
+def test_resnet_fused_conv3_step_on_card_matches_cpu(cuda_device,
+                                                     monkeypatch):
+    """One f32 forward and backward of resnet_nano with fused_block and
+    fused_conv3 through kernels #8-#13 on the card (convolutions in full
+    f32: TF32 off), against the plain versions on the CPU: loss, every
+    gradient and the updated running buffers."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    torch.manual_seed(0)
+    cpu = tresnet.resnet_nano(num_classes=10, dtype=torch.float32,
+                              fused_block=True, fused_conv3=True).train()
+    card = tresnet.resnet_nano(num_classes=10, dtype=torch.float32,
+                               fused_block=True,
+                               fused_conv3=True).to(cuda_device).train()
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(6)
+    image = torch.from_numpy(rng.standard_normal((4, 32, 32, 3)).astype(
+        np.float32))
+    label = torch.from_numpy(rng.integers(0, 10, 4))
+    counts = (tflb.fwd_launches, tflb.bwd_dx_launches, tflb.bwd_dw_launches,
+              tfc.fwd_launches, tfc.bwd_dx_launches, tfc.bwd_dw_launches)
+    losses = []
+    for model, dev in ((cpu, "cpu"), (card, cuda_device)):
+        loss = smoothed_softmax_ce(model(image.to(dev)), label.to(dev), 0.1)
+        loss.backward()
+        losses.append(loss.item())
+    torch.cuda.synchronize()
+    # Two blocks, each with conv1, conv3 and a downsample; the first is at
+    # stride 1, so its 3x3 runs through #11-#13.
+    assert (tflb.fwd_launches, tflb.bwd_dx_launches, tflb.bwd_dw_launches,
+            tfc.fwd_launches, tfc.bwd_dx_launches,
+            tfc.bwd_dw_launches) == tuple(
+                c + n for c, n in zip(counts, (6, 6, 6, 1, 1, 1)))
     assert losses[1] == pytest.approx(losses[0], rel=1e-5)
     top = max(p.grad.abs().max().item() for p in cpu.parameters())
     for (name, p), q in zip(cpu.named_parameters(), card.parameters()):

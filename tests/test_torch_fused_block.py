@@ -29,9 +29,6 @@ orders: 1e-4 of each tensor's largest |ref| (as the ResNet parity test),
 the running statistics 1e-5.
 """
 
-import functools
-
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -39,14 +36,14 @@ import pytest
 import torch
 
 from distributeddeeplearning_tpu.models import fused_block as jfb
-from distributeddeeplearning_tpu.models import resnet as jresnet
 from distributeddeeplearning_tpu_torch.models import fused_block as tfb
 from distributeddeeplearning_tpu_torch.models import resnet as tresnet
 from distributeddeeplearning_tpu_torch.ops import fused_linear_bn as tflb
 from distributeddeeplearning_tpu_torch.utils.weights import (
     batch_stats_to_flax, params_from_flax, params_to_flax)
-from tests.torch_port_helpers import (close_rel, flat_params,  # noqa: F401
-                                      one_torch_thread)
+from tests.torch_port_helpers import (  # noqa: F401
+    close_rel, flat_params, one_torch_thread, seeded_block_variables,
+    unfused_bottleneck)
 
 FILTERS, BATCH = 8, 2
 # (input channels, stride, spatial side)
@@ -54,46 +51,6 @@ CASES = {"stride1_downsample": (8, 1, 8), "identity": (32, 1, 8),
          "stride2": (16, 2, 8), "stride2_7x7": (16, 2, 7)}
 TOL = dict(rtol=1e-4, atol=1e-4)
 F32 = dict(rtol=1e-5, atol=1e-5)
-
-
-def _unfused_block(strides: int, train: bool):
-    """The JAX unfused bottleneck with the ResNet's f32 conv and
-    BatchNorm (its ``norm_act`` without ``fused_bn``)."""
-    conv = functools.partial(nn.Conv, use_bias=False, dtype=jnp.float32,
-                             param_dtype=jnp.float32, padding="SAME")
-
-    def norm_act(y, *, name, residual=None, relu=True,
-                 scale_init=nn.initializers.ones):
-        y = nn.BatchNorm(use_running_average=not train, momentum=0.9,
-                         epsilon=1e-5, dtype=jnp.float32,
-                         param_dtype=jnp.float32, scale_init=scale_init,
-                         name=name)(y)
-        if residual is not None:
-            y = y + residual
-        return nn.relu(y) if relu else y
-
-    return jresnet.BottleneckBlock(FILTERS, strides, conv, norm_act)
-
-
-def _seeded_variables(block, x, seed: int) -> dict:
-    """flax variables drawn with numpy: conv kernels at the init scale,
-    nonzero BN scales (zero-init would silence the residual branch) and
-    biases, non-trivial batch_stats."""
-    shapes = jax.eval_shape(lambda: block.init(jax.random.key(0), x,
-                                               train=False))
-    rng = np.random.default_rng(seed)
-
-    def draw(path, leaf):
-        name, shape = path[-1].key, leaf.shape
-        if name == "kernel":
-            return rng.normal(0, np.sqrt(2.0 / (np.prod(shape[:2])
-                                                * shape[-1])), shape)
-        if name in ("scale", "var"):
-            return rng.uniform(0.5, 1.5, shape)
-        return rng.uniform(-0.3, 0.3, shape)   # bias, mean
-
-    return jax.tree_util.tree_map_with_path(
-        lambda p, a: np.asarray(draw(p, a), np.float32), shapes)
 
 
 @pytest.fixture(scope="module", params=list(CASES))
@@ -105,8 +62,8 @@ def case(request) -> dict:
     rng = np.random.default_rng(len(request.param))
     x = rng.standard_normal((BATCH, side, side, cin)).astype(np.float32)
     fused = jfb.FusedBottleneckBlock(FILTERS, stride, dtype=jnp.float32)
-    unfused = _unfused_block(stride, train=True)
-    variables = _seeded_variables(fused, x, 1)
+    unfused = unfused_bottleneck(FILTERS, stride, train=True)
+    variables = seeded_block_variables(fused, x, 1)
     out_side = -(-side // stride)
     cot = rng.standard_normal((BATCH, out_side, out_side, 4 * FILTERS)
                               ).astype(np.float32)

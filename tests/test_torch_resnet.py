@@ -184,6 +184,5 @@ def test_registry_parameter_counts_match_jax():
 
 
 def test_later_slice_options_raise():
-    for kw in ({"fused_conv3": True}, {"bn_axis_name": "data"}):
-        with pytest.raises(NotImplementedError):
-            resnet.resnet_nano(**kw)
+    with pytest.raises(NotImplementedError):
+        resnet.resnet_nano(bn_axis_name="data")

@@ -263,6 +263,26 @@ def test_resnet_fused_block_cli_on_cpu(capsys):
     assert lines[-1]["summary"]["final_step"] == 3
 
 
+def test_resnet_fused_conv3_cli_on_cpu(capsys):
+    """--fused-block --fused-conv3: resnet_nano's stride-1 3x3 through the
+    conv kernels' plain versions, the rest as --fused-block."""
+    tcli.main(["--model", "resnet_nano", "--fused-block", "--fused-conv3",
+               "--image-size", "16", "--device", "cpu", "--synthetic",
+               "--steps", "2", "--batch-size", "4", "--num-classes", "10",
+               "--log-every", "1", "--warmup-steps", "1"])
+    lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    assert [x["step"] for x in lines[:-1]] == [1, 2]
+    assert all(np.isfinite(x["loss"]) for x in lines[:-1])
+    assert abs(lines[0]["loss"] - np.log(10)) < 0.5
+    assert lines[-1]["summary"]["final_step"] == 2
+
+
+def test_cli_fused_conv3_needs_fused_block():
+    with pytest.raises(SystemExit, match="requires --fused-block"):
+        tcli.main(["--model", "resnet_nano", "--device", "cpu", "--steps",
+                   "1", "--fused-conv3"])
+
+
 def test_cli_refuses_fused_block_without_batchnorm():
     with pytest.raises(SystemExit, match="no BatchNorm"):
         tcli.main(["--model", "gpt_nano", "--device", "cpu", "--steps", "1",
@@ -283,7 +303,7 @@ def test_resnet_cli_without_a_card_raises(monkeypatch):
 
 @pytest.mark.parametrize("argv", [["--dp", "2"], ["--accum", "4"],
                                   ["--precision", "mixed"],
-                                  ["--fused-block", "--fused-conv3"],
+                                  ["--pp", "2"],
                                   ["--tp", "2"],
                                   ["--optimizer", "lars"], ["--fused-conv3"],
                                   ["--sync-bn"]])

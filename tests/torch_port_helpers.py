@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import functools
 
+import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +20,7 @@ from flax.linen import meta as flax_meta
 
 from distributeddeeplearning_tpu.models import gpt as jgpt
 from distributeddeeplearning_tpu.models import llama as jllama
+from distributeddeeplearning_tpu.models import resnet as jresnet
 
 # f32: both sides compute in f32 and differ only in summation order.
 F32 = dict(rtol=1e-5, atol=1e-5)
@@ -72,3 +74,43 @@ def tiny_lm_params(family: str, vocab: int) -> dict:
     init = jax.jit(lambda key: build(vocab_size=vocab).init(
         {"params": key}, jnp.ones((1, 8), jnp.int32), train=False))
     return flax_params(init(jax.random.key(0)))
+
+
+def unfused_bottleneck(filters: int, strides: int, train: bool):
+    """The JAX unfused bottleneck with the ResNet's f32 conv and
+    BatchNorm (its ``norm_act`` without ``fused_bn``)."""
+    conv = functools.partial(nn.Conv, use_bias=False, dtype=jnp.float32,
+                             param_dtype=jnp.float32, padding="SAME")
+
+    def norm_act(y, *, name, residual=None, relu=True,
+                 scale_init=nn.initializers.ones):
+        y = nn.BatchNorm(use_running_average=not train, momentum=0.9,
+                         epsilon=1e-5, dtype=jnp.float32,
+                         param_dtype=jnp.float32, scale_init=scale_init,
+                         name=name)(y)
+        if residual is not None:
+            y = y + residual
+        return nn.relu(y) if relu else y
+
+    return jresnet.BottleneckBlock(filters, strides, conv, norm_act)
+
+
+def seeded_block_variables(block, x, seed: int) -> dict:
+    """flax variables drawn with numpy: conv kernels at the init scale,
+    nonzero BN scales (zero-init would silence the residual branch) and
+    biases, non-trivial batch_stats."""
+    shapes = jax.eval_shape(lambda: block.init(jax.random.key(0), x,
+                                               train=False))
+    rng = np.random.default_rng(seed)
+
+    def draw(path, leaf):
+        name, shape = path[-1].key, leaf.shape
+        if name == "kernel":
+            return rng.normal(0, np.sqrt(2.0 / (np.prod(shape[:2])
+                                                * shape[-1])), shape)
+        if name in ("scale", "var"):
+            return rng.uniform(0.5, 1.5, shape)
+        return rng.uniform(-0.3, 0.3, shape)   # bias, mean
+
+    return jax.tree_util.tree_map_with_path(
+        lambda p, a: np.asarray(draw(p, a), np.float32), shapes)
