@@ -7,7 +7,8 @@ Run from the root of a checkout. Phases:
 
 1. the card: ``nvidia-smi`` name and power limit;
 2. build every kernel of the port from ``distributeddeeplearning_tpu_torch/
-   csrc`` (one ``nvcc`` per source, all started together), timed;
+   csrc`` (one ``nvcc`` per source, all started together), timed, with
+   the flash backward kernels' registers and spills from ptxas;
 3. the flash forward against its plain PyTorch version on the card over a
    grid of shapes, with its device time (CUDA-graph replay, no host launch
    work), its eager per-call time, the plain version's and the one-call
@@ -23,9 +24,11 @@ Run from the root of a checkout. Phases:
    backward, and the forward with dropout against its plain version, over S
    in {160, 1024, 4096} x D in {64, 128} x {f32, bf16} x {causal, full} x
    rate in {0, 0.1}, timed beside their bounds and, at rate 0, the backward
-   of ``scaled_dot_product_attention``;
+   of ``scaled_dot_product_attention`` (device time, and eager);
 7. the training path's kernel rows, at its shape (B=16, S=1024, H=12, D=64,
-   bf16, causal, rate 0.1);
+   bf16, causal, rate 0.1; the backward kernels at rate 0 too), and the
+   dq and dk/dv kernels run twice there in bf16 and f32, which must
+   repeat bit for bit;
 8. the training path: ``python -m distributeddeeplearning_tpu_torch.train
    --model gpt2_small --batch-size 16 --seq-len 1024 --attn flash
    --synthetic`` for a few steps (bf16 compute, f32 masters, dropout 0.1);
@@ -80,10 +83,18 @@ Run from the root of a checkout. Phases:
 Each phase prints its wall seconds. It prints a ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, "device": {...}}``. Any failed phase exits
 non-zero without that last line, and so does a machine without a card.
+
+    python3 chip_smoke.py --step-ab CHECKOUT [OTHER]
+
+runs none of that: it times one step of the training path and the flash
+backward kernels with the port of CHECKOUT and of OTHER (by default this
+checkout), each in a process of its own, in turns (CHECKOUT, OTHER, OTHER,
+CHECKOUT), for a before/after comparison on one card.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import io
 import json
@@ -255,6 +266,27 @@ def device_ms(fn) -> float:
     return ms
 
 
+def kernels_ms(fn, n: int = 5) -> float:
+    """Mean device time of one call of ``fn``: the durations of the kernels
+    it launches, from torch.profiler's records of ``n`` calls after a
+    warm-up. For calls a CUDA graph cannot capture here, such as autograd's
+    backward of a tensor made outside the capture."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not us:
+        raise RuntimeError("the profiler recorded no kernels")
+    return us / n / 1e3
+
+
 # Products per live (query, key) pair: the forward's s = q.k and p.v; dq's
 # s, dp = do.v and ds.k; dk/dv's s, dp, p_drop^T.do and ds^T.q.
 PRODUCTS = {"fwd": 2, "dq": 3, "dkv": 4}
@@ -326,6 +358,37 @@ def phase_build(kernels) -> None:
     log(f"# build: {len(paths)} source(s) in "
         f"{time.perf_counter() - t0:.2f} s -> "
         f"{', '.join(p.name for p in paths.values())}")
+    for source in sources:
+        if source.startswith("flash_attention_bwd"):
+            log(f"# ptxas {source}: " + json.dumps(ptxas_report(
+                _build.build_log(paths[source]).read_text())))
+
+
+def ptxas_report(text: str) -> dict:
+    """Registers and spill bytes of each flash kernel instance from nvcc's
+    ``-Xptxas -v`` output, keyed ``name<D,dropout>``."""
+    import re
+
+    out: dict[str, dict] = {}
+    name = None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            k = re.search(r"(flash_(?:dq|dkv)(?:_tc)?_kernel)ILi(\d+)E"
+                          r"(?:Li\d+E)*Lb([01])E", m.group(1))
+            name = f"{k.group(1)}<{k.group(2)},{k.group(3)}>" if k else None
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out.setdefault(name, {}).update(spill_stores=int(m.group(1)),
+                                            spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
 
 
 def flash_case(fa, s, b, h, d, dtype, causal, lengths, seed):
@@ -557,7 +620,8 @@ def phase_gpt2(kernels, failures, scratch: Path) -> dict:
 
 # Kernel classes of a step profile, by a substring of the kernel's name; the
 # first match wins.
-FLASH_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel")
+FLASH_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel",
+                 "flash_dq_tc_kernel", "flash_dkv_tc_kernel")
 FLBN_KERNELS = ("flbn_fwd_kernel", "flbn_bwd_dx_kernel", "flbn_bwd_dw_kernel",
                 "flbn_column_finish_kernel", "flbn_dw_finish_kernel")
 FCBN_KERNELS = ("fcbn_fwd_kernel", "fcbn_bwd_dx_kernel", "fcbn_bwd_dw_kernel",
@@ -690,8 +754,10 @@ def bwd_case(fa, s, b, h, d, dtype, causal, lengths, rate, seed,
     and dk/dv kernels and their plain versions. Returns the rows (the
     forward's too when it drops), each with errors, device times, bound
     and, when ``library``, the library yardstick at rate 0: the forward
-    (device time) and backward (eager time, dq, dk and dv together) of
-    ``scaled_dot_product_attention`` with the boolean mask."""
+    and backward (dq, dk and dv together) of
+    ``scaled_dot_product_attention`` with the boolean mask, both as device
+    time (``library_ms``), and the backward's eager time as a caller pays
+    it, host work included (``library_call_ms``)."""
     import torch
     import torch.nn.functional as F
 
@@ -710,7 +776,7 @@ def bwd_case(fa, s, b, h, d, dtype, causal, lengths, rate, seed,
     args = (q, k, v, mask, lse, do, delta, causal, rate, seed - 2 ** 31)
     head = {"s": s, "b": b, "h": h, "d": d, "dtype": dtype, "causal": causal,
             "rate": rate, "lengths": list(lengths)}
-    lib_fwd = lib_bwd = None
+    lib_fwd = lib_bwd = lib_bwd_call = None
     if library:
         # One library call each way at rate 0 on the same inputs: no
         # library call applies the hash mask.
@@ -725,9 +791,13 @@ def bwd_case(fa, s, b, h, d, dtype, causal, lengths, rate, seed,
                 qt, kt, vt, attn_mask=keep))
         out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep)
         dot = do.transpose(1, 2)
-        # Eager: autograd's backward is not captured in a CUDA graph here.
-        lib_bwd = call_ms(lambda: torch.autograd.grad(
-            out, (qt, kt, vt), dot, retain_graph=True))
+
+        def lib_grad():
+            return torch.autograd.grad(out, (qt, kt, vt), dot,
+                                       retain_graph=True)
+
+        lib_bwd = kernels_ms(lib_grad)
+        lib_bwd_call = call_ms(lib_grad)
         del out
     rows = []
     if rate > 0.0:
@@ -770,7 +840,7 @@ def bwd_case(fa, s, b, h, d, dtype, causal, lengths, rate, seed,
                      "err_over_tol": share, "ref_max_abs": ref_max,
                      "ok": finite and share <= 1.0 and ref_max > 0.0,
                      "ms": device_ms(kernel), "plain_ms": device_ms(plain),
-                     "library_ms": lib_bwd})
+                     "library_ms": lib_bwd, "library_call_ms": lib_bwd_call})
     for r in rows:
         r["library_rate"] = 0.0 if library else None
     kinds = {"flash_attention_fwd": "fwd", "flash_attention_dq": "dq",
@@ -813,16 +883,48 @@ def phase_train_rows(fa) -> dict:
     """Each kernel's row at the training path's shape: B=16, S=1024, 12
     heads of 64, bf16, causal, every key live, dropout 0.1. The library
     yardstick there is taken at rate 0 on the same inputs (no library call
-    applies the hash mask)."""
+    applies the hash mask), so the backward kernels are timed at rate 0 too
+    (``ms_rate0``): that pair compares like with like."""
     import torch
 
-    rows = {r["kernel"]: r for r in bwd_case(
-        fa, TRAIN_SEQ, TRAIN_BATCH, 12, 64, "bfloat16", True,
-        [TRAIN_SEQ] * TRAIN_BATCH, 0.1, SEED + 11, library=True)}
+    args = (fa, TRAIN_SEQ, TRAIN_BATCH, 12, 64, "bfloat16", True,
+            [TRAIN_SEQ] * TRAIN_BATCH)
+    rows = {r["kernel"]: r for r in bwd_case(*args, 0.1, SEED + 11,
+                                             library=True)}
+    for r in bwd_case(*args, 0.0, SEED + 11, library=False):
+        rows[r["kernel"]]["ms_rate0"] = r["ms"]
     for r in rows.values():
         log("# train_shape " + json.dumps(r))
     torch.cuda.empty_cache()
     return rows
+
+
+def phase_bwd_repeat(fa, failures) -> None:
+    """dq and dk/dv at the training shape (causal, dropout 0.1), in bf16
+    and f32, run twice on the same inputs: every output bit must repeat,
+    since each element is summed in one fixed order without atomics."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    shape = (TRAIN_BATCH, TRAIN_SEQ, 12, 64)
+    for dtype in ("bfloat16", "float32"):
+        q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
+                       .to(getattr(torch, dtype)) for _ in range(4))
+        mask = torch.ones(shape[:2], dtype=torch.int32, device=dev)
+        o, lse = fa.flash_attention_fwd(q, k, v, mask, causal=True,
+                                        dropout_rate=0.1, dropout_seed=SEED)
+        args = (q, k, v, mask, lse, do, fa._delta(do, o), True, 0.1, SEED)
+        runs = [(fa.flash_attention_dq_cuda(*args),
+                 *fa.flash_attention_dkv_cuda(*args)) for _ in range(2)]
+        torch.cuda.synchronize()
+        same = [bool(torch.equal(a, b)) for a, b in zip(*runs)]
+        log(f"# bwd_repeat {dtype}: dq, dk, dv bit for bit {same}")
+        if not all(same):
+            failures.append(f"flash backward ({dtype}) does not repeat bit "
+                            f"for bit: dq, dk, dv {same}")
+        del runs
+        torch.cuda.empty_cache()
 
 
 def run_train_cli(argv) -> list[dict]:
@@ -836,6 +938,13 @@ def run_train_cli(argv) -> list[dict]:
     return [json.loads(line) for line in buf.getvalue().splitlines()]
 
 
+# The training path's CLI arguments.
+TRAIN_ARGV = ["--model", "gpt2_small", "--batch-size", str(TRAIN_BATCH),
+              "--seq-len", str(TRAIN_SEQ), "--attn", "flash", "--synthetic",
+              "--steps", str(TRAIN_STEPS), "--log-every", "1",
+              "--seed", str(SEED)]
+
+
 def phase_train(kernels, failures) -> dict:
     """The training path: GPT-2 small at full width through the CLI, then a
     device-time profile of one step of the same configuration."""
@@ -843,18 +952,9 @@ def phase_train(kernels, failures) -> dict:
 
     from distributeddeeplearning_tpu_torch.ops import flash_attention as fa
 
-    from distributeddeeplearning_tpu_torch.data.synthetic import (
-        SyntheticCausalTokens)
-    from distributeddeeplearning_tpu_torch.train import cli as train_cli
-    from distributeddeeplearning_tpu_torch.train import loop, steps
-
-    argv = ["--model", "gpt2_small", "--batch-size", str(TRAIN_BATCH),
-            "--seq-len", str(TRAIN_SEQ), "--attn", "flash", "--synthetic",
-            "--steps", str(TRAIN_STEPS), "--log-every", "1",
-            "--seed", str(SEED)]
     reset_counts(kernels)
     t0 = time.perf_counter()
-    lines = run_train_cli(argv)
+    lines = run_train_cli(TRAIN_ARGV)
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
     launches = read_counts(kernels)
@@ -877,8 +977,22 @@ def phase_train(kernels, failures) -> dict:
                         f"ln {VOCAB}")
     if not summary.get("tokens_per_sec"):
         failures.append(f"training summary without tokens/s: {summary}")
+    return {"launches": launches, "summary": summary,
+            "profile": gpt2_step_profile()}
 
-    config = train_cli.build_config(train_cli.parse_args(argv))
+
+def gpt2_step_profile() -> dict:
+    """A device-time profile of one step of the training path's
+    configuration (``step_profile``), with the tokens/s of its unprofiled
+    wall time and the peak device memory."""
+    import torch
+
+    from distributeddeeplearning_tpu_torch.data.synthetic import (
+        SyntheticCausalTokens)
+    from distributeddeeplearning_tpu_torch.train import cli as train_cli
+    from distributeddeeplearning_tpu_torch.train import loop, steps
+
+    config = train_cli.build_config(train_cli.parse_args(TRAIN_ARGV))
     state, sched = loop.build_state(config, torch.device("cuda"))
     train_step = steps.make_train_step(config, sched)
     source = SyntheticCausalTokens(TRAIN_BATCH, TRAIN_SEQ, VOCAB, SEED,
@@ -889,11 +1003,89 @@ def phase_train(kernels, failures) -> dict:
                            "0.1)", lambda: train_step(state, batch),
                            grad=True)
     profile["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if profile.get("wall_us"):
+        profile["tokens_per_sec"] = (TRAIN_BATCH * TRAIN_SEQ
+                                     / profile["wall_us"] * 1e6)
     log(f"# gpt2_small train step peak memory "
-        f"{profile['peak_memory_gb']:.2f} GB")
+        f"{profile['peak_memory_gb']:.2f} GB, "
+        f"{profile.get('tokens_per_sec')} tokens/s")
     del state
     torch.cuda.empty_cache()
-    return {"launches": launches, "summary": summary, "profile": profile}
+    return profile
+
+
+# Shapes of step_ab's backward kernel times: GPT-2's training shape, and
+# D=128 at S=4096; causal, (B, S, H, D).
+AB_SHAPES = ((TRAIN_BATCH, TRAIN_SEQ, 12, 64), (1, 4096, 32, 128))
+
+
+def step_ab(first: str, second: str) -> int:
+    """The training path's step profile and the backward kernels' device
+    times with the port of checkout ``first`` and of ``second``, each in a
+    process of its own, in turns: first, second, second, first. Kernels
+    build into each checkout's own cache."""
+    keys = ("wall_us", "device_busy_us", "idle_share", "flash_us",
+            "flash_share_of_busy", "tokens_per_sec", "peak_memory_gb",
+            "bwd_ms")
+    for root in (first, second, second, first):
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--gpt2-step",
+             root], capture_output=True, text=True, timeout=900)
+        lines = proc.stdout.strip().splitlines()
+        if proc.returncode or not lines:
+            print(proc.stdout + proc.stderr, file=sys.stderr)
+            return 1
+        record = json.loads(lines[-1])
+        log("# step_ab " + json.dumps(
+            {"checkout": root, **{k: record.get(k) for k in keys}}))
+    return 0
+
+
+def bwd_ms() -> dict:
+    """Device times of the dq and dk/dv kernels at AB_SHAPES (bf16,
+    causal, every key live), at rate 0.1 and 0."""
+    import torch
+
+    from distributeddeeplearning_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    out = {}
+    for b, s, h, d in AB_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+        q, k, v, do = (torch.randn((b, s, h, d), generator=gen, device=dev)
+                       .bfloat16() for _ in range(4))
+        mask = torch.ones((b, s), dtype=torch.int32, device=dev)
+        for rate in (0.1, 0.0):
+            o, lse = fa.flash_attention_fwd(q, k, v, mask, causal=True,
+                                            dropout_rate=rate,
+                                            dropout_seed=SEED)
+            args = (q, k, v, mask, lse, do, fa._delta(do, o), True, rate,
+                    SEED)
+            tag = f"s{s}_d{d}_rate{rate}"
+            out[f"dq_{tag}"] = device_ms(
+                lambda: fa.flash_attention_dq_cuda(*args))
+            out[f"dkv_{tag}"] = device_ms(
+                lambda: fa.flash_attention_dkv_cuda(*args))
+        del q, k, v, do, o
+        torch.cuda.empty_cache()
+    return out
+
+
+def gpt2_step(root: str) -> int:
+    """``step_ab``'s child: one step profile and the backward kernels'
+    times with the port of checkout ``root``, its record as the last
+    line."""
+    import torch
+
+    sys.path.insert(0, str(Path(root).resolve()))
+    if not torch.cuda.is_available():
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    record = gpt2_step_profile()
+    record["bwd_ms"] = bwd_ms()
+    log(json.dumps(record))
+    return 0
 
 
 def phase_flash_vs_dense_step(failures) -> None:
@@ -1788,6 +1980,7 @@ def main() -> int:
         timed("llama", phase_llama, fa, failures)
         timed("bwd_grid", phase_bwd_grid, fa, failures)
         main_rows = timed("train_rows", phase_train_rows, fa)
+        timed("bwd_repeat", phase_bwd_repeat, fa, failures)
         train = timed("gpt2_train", phase_train, kernels, failures)
         timed("flash_vs_dense_step", phase_flash_vs_dense_step, failures)
         bn_grid = timed("bn_grid", phase_bn_grid, bn, failures)
@@ -1845,7 +2038,9 @@ def main() -> int:
     for k in kernels:
         if k["module"] is fa:
             row, launches = main_rows[k["name"]], train["launches"]
-            extra = {"library_rate": row["library_rate"]}
+            extra = {key: row[key] for key in ("library_rate", "ms_rate0",
+                                               "library_call_ms")
+                     if key in row}
         elif k["module"] is bn:
             row, launches = stem[k["name"]], resnet["launches"]
             extra = {"step_ms": bn_grid["step"][k["name"]]["ms"]}
@@ -1869,5 +2064,27 @@ def main() -> int:
     return 0
 
 
+def parse_args(argv):
+    parser = argparse.ArgumentParser(
+        description="Smoke run of the PyTorch port on one NVIDIA GPU; with "
+        "no arguments, every phase.")
+    parser.add_argument(
+        "--step-ab", metavar="CHECKOUT", nargs="+",
+        help="only time one GPT-2 small training step (the training path's "
+        "configuration) and the flash backward kernels with the port of "
+        "one CHECKOUT and of another (default: this one), in turns (first, "
+        "second, second, first)")
+    parser.add_argument("--gpt2-step", metavar="CHECKOUT",
+                        help=argparse.SUPPRESS)
+    return parser.parse_args(argv)
+
+
 if __name__ == "__main__":
+    cli = parse_args(sys.argv[1:])
+    if cli.gpt2_step:
+        sys.exit(gpt2_step(cli.gpt2_step))
+    if cli.step_ab:
+        if len(cli.step_ab) > 2:
+            sys.exit("--step-ab takes one or two checkouts")
+        sys.exit(step_ab(cli.step_ab[0], (cli.step_ab[1:] or [str(ROOT)])[0]))
     sys.exit(main())

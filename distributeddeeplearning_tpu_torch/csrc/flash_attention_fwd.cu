@@ -275,7 +275,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   const long long* s = static_cast<const long long*>(strides);
   const Strides st{s[0], s[1], s[2], s[3], s[4],  s[5],
                    s[6], s[7], s[8], s[9], s[10], s[11]};
-  const Dropout dr{rate, inv_keep, seed, b_start, h_start, h_total};
+  const Dropout dr{flash::keep_threshold(rate), inv_keep, seed, b_start,
+                   h_start, h_total};
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   return rate > 0.f ? dispatch<true>(q, k, v, mask, o, lse, st, B, S, H, D,
                                      dtype, causal, scale, dr, cs)

@@ -24,7 +24,7 @@ from typing import Iterable
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 CACHE = Path(__file__).resolve().parents[2] / ".cache" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _nvcc() -> str:
@@ -47,6 +47,12 @@ def library_path(source: str) -> Path:
     return CACHE / f"{src.stem}-{key}.so"
 
 
+def build_log(library: Path) -> Path:
+    """nvcc's output for ``library``: ptxas's registers, shared memory and
+    spills of each kernel (``-Xptxas -v``)."""
+    return library.with_suffix(".log")
+
+
 def build(sources: Iterable[str]) -> dict[str, Path]:
     """Compile every source whose library is missing, one ``nvcc`` each, all
     started together; returns ``{source: library path}``."""
@@ -67,6 +73,7 @@ def build(sources: Iterable[str]) -> dict[str, Path]:
             if proc.returncode:
                 failed.append(f"{s}:\n{log}")
             else:
+                build_log(todo[s]).write_text(log)
                 os.replace(tmp, todo[s])  # atomic: concurrent builds agree
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))

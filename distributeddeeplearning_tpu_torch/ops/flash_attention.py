@@ -5,8 +5,15 @@ Counterpart of ``distributeddeeplearning_tpu/ops/flash_attention.py``. The
 Pallas kernels become hand-written Hopper kernels (see the notes at the top
 of each source for what bounds them and what their design does about that):
 
-- ``_fwd_kernel`` -> ``csrc/flash_attention_fwd.cu`` (o and the row lse);
+- ``_fwd_kernel`` -> ``csrc/flash_attention_fwd.cu`` (o and the row lse;
+  f32 FMAs on the CUDA cores for both dtypes);
 - ``_dq_kernel`` and ``_dkv_kernel`` -> ``csrc/flash_attention_bwd.cu``.
+  Both are bound by their S^2 * D products. In bf16 they run those on the
+  tensor cores (wgmma, one warpgroup per 64-row tile, ds and p_drop fed
+  from registers), stage bf16 tiles through a two-stage cp.async ring and
+  schedule the heaviest causal tiles first; every row of q, k, v and do
+  must start on 16 bytes. In f32 they stay f32 FMAs on the CUDA cores, so
+  the gradients keep f32 accuracy.
 
 Attention-probability dropout runs inside the kernels through the
 counter-based hash of ``ops/hash_dropout.py``: the backward kernels
@@ -284,7 +291,24 @@ def flash_attention_cuda(q, k, v, kv_mask, causal: bool,
     return o, lse
 
 
+def _check_rows_aligned(**tensors) -> None:
+    """Raise unless every (batch, seq, head) row of each bf16 tensor starts
+    on 16 bytes: the tensor-core backward kernels copy rows into shared
+    memory with cp.async, 16 bytes a thread. Strides of size-1 dims are
+    never followed, so they are not checked."""
+    for name, x in tensors.items():
+        strides = [st for st, n in zip(x.stride()[:3], x.shape[:3]) if n > 1]
+        if x.data_ptr() % 16 or any(st % 8 for st in strides):
+            raise ValueError(
+                f"{name}: the bf16 backward kernels need every row on 16 "
+                f"bytes (data_ptr % 16 == 0, batch/seq/head strides % 8 == "
+                f"0); got data_ptr % 16 = {x.data_ptr() % 16}, strides "
+                f"{tuple(x.stride())}")
+
+
 def _check_bwd(q, k, v, kv_mask, lse, do, delta) -> None:
+    if q.dtype == torch.bfloat16:
+        _check_rows_aligned(q=q, k=k, v=v, do=do)
     _check(q, k, v, kv_mask, do=do)
     want = (q.shape[0], q.shape[2], q.shape[1])
     for name, x in (("lse", lse), ("delta", delta)):
@@ -299,8 +323,9 @@ def flash_attention_dq_cuda(q, k, v, kv_mask, lse, do, delta, causal: bool,
                             dropout_rate: float = 0.0, dropout_seed=None,
                             bh_offsets=None):
     """Launch the dq kernel: dq as :func:`flash_attention_dq_reference`.
-    Raises on what the kernel does not take; launches on the current
-    stream without synchronising."""
+    Raises on what the kernel does not take (in bf16 also on a row of q, k,
+    v or do off 16 bytes); launches on the current stream without
+    synchronising."""
     global dq_launches
     _check_bwd(q, k, v, kv_mask, lse, do, delta)
     drop = _dropout(dropout_rate, dropout_seed, q.shape[2], bh_offsets)

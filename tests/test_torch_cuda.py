@@ -137,10 +137,12 @@ def _inputs(device, dtype, b, s, h, d, seed):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("s", [1, 63, 65, 200])
+@pytest.mark.parametrize("s", [1, 63, 65, 200, 1031])
 def test_backward_kernels_match_plain(cuda_device, rate, dtype, d, causal, s):
     """dq and dk/dv kernels against the plain backward on the forward
-    kernel's o and lse, with a ragged and a fully masked batch row."""
+    kernel's o and lse, with a ragged and a fully masked batch row. S=1031
+    spans 17 of the bf16 kernels' 64-row tiles with a ragged last one, so
+    their two-stage ring wraps several times."""
     q, k, v, do = _inputs(cuda_device, dtype, 3, s, 4, d, s * d)
     mask = _mask(s, (s, max(s // 2, 1), 0), cuda_device)
     seed = -20260101
@@ -220,6 +222,53 @@ def test_backward_wrapper_raises_rather_than_falling_back(cuda_device,
         tfa.flash_attention_bwd(q, k, v, mask, q, lse, do, causal=True)
     with pytest.raises(exc):
         tfa.flash_attention_fwd(q, k, v, mask, causal=True)
+    assert (tfa.dq_launches, tfa.dkv_launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_repeats_bitwise(cuda_device, dtype):
+    """Every gradient element is summed in one fixed order, without
+    atomics: two runs of the dq and dk/dv kernels on the same inputs give
+    the same bits, at both head dims, with dropout, over many tiles."""
+    for d in (64, 128):
+        q, k, v, do = _inputs(cuda_device, dtype, 2, 1031, 3, d, d + 1)
+        mask = _mask(1031, (1031, 700), cuda_device)
+        o, lse = tfa.flash_attention_fwd(q, k, v, mask, causal=True,
+                                         dropout_rate=0.1, dropout_seed=9)
+        runs = [tfa.flash_attention_bwd(q, k, v, mask, o, lse, do,
+                                        causal=True, dropout_rate=0.1,
+                                        dropout_seed=9) for _ in range(2)]
+        torch.cuda.synchronize()
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_bf16_backward_takes_aligned_views_refuses_misaligned(cuda_device):
+    """The bf16 kernels copy 16-byte pieces of rows: head-split views of a
+    fused projection (rows 128 bytes apart) are read through their strides,
+    a view 2 bytes off a 16-byte boundary raises before any launch."""
+    rng = np.random.default_rng(2)
+    qkv = torch.from_numpy(rng.standard_normal((2, 96, 3, 4, 64)).astype(
+        np.float32)).to(cuda_device, torch.bfloat16)
+    q, k, v = qkv.unbind(dim=2)
+    do = torch.from_numpy(rng.standard_normal((2, 96, 4, 64)).astype(
+        np.float32)).to(cuda_device, torch.bfloat16)
+    mask = torch.ones((2, 96), dtype=torch.int32, device=cuda_device)
+    o, lse = tfa.flash_attention_fwd(q, k, v, mask, causal=True)
+    grads = tfa.flash_attention_bwd(q, k, v, mask, o, lse, do, causal=True)
+    refs = tfa.flash_attention_bwd_reference(q, k, v, mask, o, lse, do,
+                                             True)
+    for g, ref in zip(grads, refs):
+        _rows_close(g, ref, *GRAD_TOL[torch.bfloat16])
+
+    off = torch.zeros(do.numel() + 1, dtype=torch.bfloat16,
+                      device=cuda_device)[1:].view(do.shape)
+    off.copy_(do)
+    before = (tfa.dq_launches, tfa.dkv_launches)
+    with pytest.raises(ValueError, match="16 bytes"):
+        tfa.flash_attention_bwd(q, k, v, mask, o, lse, off, causal=True)
     assert (tfa.dq_launches, tfa.dkv_launches) == before
 
 

@@ -103,11 +103,17 @@ def test_cpu_dispatch_takes_plain_version_and_never_falls_back():
         tfa.flash_attention(meta, meta, meta)
 
 
+def _misaligned_bf16(q):
+    """q's shape in bf16, starting 2 bytes past a 16-byte boundary."""
+    return torch.zeros(q.numel() + 1, dtype=torch.bfloat16)[1:].view(q.shape)
+
+
 @pytest.mark.parametrize("change,exc", [
     (lambda q: q.to(torch.float16), TypeError),
     (lambda q: q[..., :8], ValueError),           # D not in {64, 128}
     (lambda q: q.transpose(1, 3).contiguous().transpose(1, 3), ValueError),
     (lambda q: q, ValueError),                    # CPU tensors
+    (_misaligned_bf16, ValueError),               # bf16 rows off 16 bytes
 ])
 def test_kernel_wrapper_rejects_what_it_cannot_take(change, exc):
     q, k, v = (torch.zeros((1, 8, 2, 64)) for _ in range(3))
@@ -115,6 +121,14 @@ def test_kernel_wrapper_rejects_what_it_cannot_take(change, exc):
     mask = torch.ones((1, 8), dtype=torch.int32)
     with pytest.raises(exc):
         tfa.flash_attention_cuda(q, k, v, mask, causal=True)
+    # The backward wrappers refuse the same. A bf16 row off 16 bytes is
+    # refused before the device is looked at: the forward kernel could take
+    # it, the backward's 16-byte cp.async copies cannot.
+    lse = torch.zeros((1, 2, 8))
+    match = "16 bytes" if q.dtype == torch.bfloat16 else None
+    for fn in (tfa.flash_attention_dq_cuda, tfa.flash_attention_dkv_cuda):
+        with pytest.raises(exc, match=match):
+            fn(q, k, v, mask, lse, q, lse, causal=True)
 
 
 @pytest.mark.parametrize("impl", ["dense", "flash"])
