@@ -8,7 +8,8 @@ Run from the root of a checkout. Phases:
 1. the card: ``nvidia-smi`` name and power limit;
 2. build every kernel of the port from ``distributeddeeplearning_tpu_torch/
    csrc`` (one ``nvcc`` per source, all started together), timed, with
-   the flash backward kernels' registers and spills from ptxas;
+   the registers and spills from ptxas of the tensor-core kernels (the
+   flash backward's, the bf16 3x3 forward's and dw's);
 3. the flash forward against its plain PyTorch version on the card over a
    grid of shapes, with its device time (CUDA-graph replay, no host launch
    work), its eager per-call time, the plain version's and the one-call
@@ -71,8 +72,9 @@ Run from the root of a checkout. Phases:
    the plain versions' times and cuDNN (``F.conv2d``,
    ``torch.nn.grad.conv2d_input`` and ``conv2d_weight`` of the bare
    convolution) as the library yardstick; the sums of #11 and #12 and the
-   whole of #13 run twice and must repeat bit for bit, and each dw check
-   must fail a dw that lacks one of #13's chunks of M;
+   whole of #13 run twice and must repeat bit for bit, each dw check
+   must fail a dw that lacks one of #13's chunks of M, and each check of
+   #11's sums must fail sums that lack one block's run of pixels;
 16. the ``--fused-block --fused-conv3`` training path, as phase 14: each
    matmul kernel launched 36 x steps times, each 3x3 kernel 13 x steps
    times, no other kernel of the port;
@@ -86,9 +88,13 @@ non-zero without that last line, and so does a machine without a card.
 
     python3 chip_smoke.py --step-ab CHECKOUT [OTHER]
 
-runs none of that: it times one step of the training path and the flash
-backward kernels with the port of CHECKOUT and of OTHER (by default this
-checkout), each in a process of its own, in turns (CHECKOUT, OTHER, OTHER,
+runs none of that: it times, with the port of CHECKOUT and of OTHER (by
+default this checkout), one step of the GPT-2 training path with the flash
+backward kernels, and one bf16 step of ResNet-50 ``--fused-block
+--fused-conv3`` at batch 512 (wall, busy, the conv_bn class, images/s,
+peak memory) with the device times of #11-#13 at the four stride-1 3x3
+shapes (bf16 and f32) and of #8-#10 at stage 1's conv3; each checkout and
+each of the two in a process of its own, in turns (CHECKOUT, OTHER, OTHER,
 CHECKOUT), for a before/after comparison on one card.
 """
 
@@ -359,14 +365,31 @@ def phase_build(kernels) -> None:
         f"{time.perf_counter() - t0:.2f} s -> "
         f"{', '.join(p.name for p in paths.values())}")
     for source in sources:
-        if source.startswith("flash_attention_bwd"):
+        if source.startswith(("flash_attention_bwd", "fused_conv_bn")):
             log(f"# ptxas {source}: " + json.dumps(ptxas_report(
                 _build.build_log(paths[source]).read_text())))
 
 
+def ptxas_key(mangled: str) -> str | None:
+    """The report's name of a kernel instance: the flash backward's as
+    name<D,dropout>, the bf16 3x3 kernels' as name<template arguments>
+    (the forward's MT, NB, resident weights); None for the others."""
+    import re
+
+    k = re.search(r"(flash_(?:dq|dkv)(?:_tc)?_kernel)ILi(\d+)E"
+                  r"(?:Li\d+E)*Lb([01])E", mangled)
+    if k:
+        return f"{k.group(1)}<{k.group(2)},{k.group(3)}>"
+    k = re.search(r"(fcbn_\w+?_tc_kernel)(?:I((?:L[a-z]\d+E)+)E)?", mangled)
+    if k:
+        args = re.findall(r"L[a-z](\d+)E", k.group(2) or "")
+        return k.group(1) + (f"<{','.join(args)}>" if args else "")
+    return None
+
+
 def ptxas_report(text: str) -> dict:
-    """Registers and spill bytes of each flash kernel instance from nvcc's
-    ``-Xptxas -v`` output, keyed ``name<D,dropout>``."""
+    """Registers and spill bytes of each kernel instance ``ptxas_key``
+    names, from nvcc's ``-Xptxas -v`` output."""
     import re
 
     out: dict[str, dict] = {}
@@ -374,9 +397,7 @@ def ptxas_report(text: str) -> dict:
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            k = re.search(r"(flash_(?:dq|dkv)(?:_tc)?_kernel)ILi(\d+)E"
-                          r"(?:Li\d+E)*Lb([01])E", m.group(1))
-            name = f"{k.group(1)}<{k.group(2)},{k.group(3)}>" if k else None
+            name = ptxas_key(m.group(1))
             continue
         if name is None:
             continue
@@ -625,6 +646,7 @@ FLASH_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel",
 FLBN_KERNELS = ("flbn_fwd_kernel", "flbn_bwd_dx_kernel", "flbn_bwd_dw_kernel",
                 "flbn_column_finish_kernel", "flbn_dw_finish_kernel")
 FCBN_KERNELS = ("fcbn_fwd_kernel", "fcbn_bwd_dx_kernel", "fcbn_bwd_dw_kernel",
+                "fcbn_fwd_tc_kernel", "fcbn_bwd_dw_tc_kernel",
                 "fcbn_column_finish_kernel", "fcbn_dw_finish_kernel")
 BN_KERNELS = ("bn_stats_partial_kernel", "bn_apply_kernel",
               "bn_bwd_reduce_partial_kernel", "bn_bwd_dx_kernel",
@@ -1019,25 +1041,38 @@ def gpt2_step_profile() -> dict:
 AB_SHAPES = ((TRAIN_BATCH, TRAIN_SEQ, 12, 64), (1, 4096, 32, 128))
 
 
+# step_ab's children: the flag that runs one, and the keys of its record
+# that the comparison prints.
+AB_RUNS = (
+    ("--gpt2-step", ("wall_us", "device_busy_us", "idle_share", "flash_us",
+                     "flash_share_of_busy", "tokens_per_sec",
+                     "peak_memory_gb", "bwd_ms")),
+    ("--resnet-step", ("wall_us", "device_busy_us", "idle_share",
+                       "conv_bn_us", "fused_block_share_of_busy",
+                       "images_per_sec", "peak_memory_gb", "kernel_ms")),
+)
+
+
 def step_ab(first: str, second: str) -> int:
-    """The training path's step profile and the backward kernels' device
-    times with the port of checkout ``first`` and of ``second``, each in a
-    process of its own, in turns: first, second, second, first. Kernels
-    build into each checkout's own cache."""
-    keys = ("wall_us", "device_busy_us", "idle_share", "flash_us",
-            "flash_share_of_busy", "tokens_per_sec", "peak_memory_gb",
-            "bwd_ms")
-    for root in (first, second, second, first):
-        proc = subprocess.run(
-            [sys.executable, str(Path(__file__).resolve()), "--gpt2-step",
-             root], capture_output=True, text=True, timeout=900)
-        lines = proc.stdout.strip().splitlines()
-        if proc.returncode or not lines:
-            print(proc.stdout + proc.stderr, file=sys.stderr)
-            return 1
-        record = json.loads(lines[-1])
-        log("# step_ab " + json.dumps(
-            {"checkout": root, **{k: record.get(k) for k in keys}}))
+    """The GPT-2 training path's step profile with the flash backward
+    kernels' device times, then the ResNet-50 --fused-block --fused-conv3
+    step's with the 3x3 and 1x1 kernels' device times, with the port of
+    checkout ``first`` and of ``second``, each in a process of its own, in
+    turns: first, second, second, first. Kernels build into each
+    checkout's own cache."""
+    for flag, keys in AB_RUNS:
+        for root in (first, second, second, first):
+            proc = subprocess.run(
+                [sys.executable, str(Path(__file__).resolve()), flag, root],
+                capture_output=True, text=True, timeout=900)
+            lines = proc.stdout.strip().splitlines()
+            if proc.returncode or not lines:
+                print(proc.stdout + proc.stderr, file=sys.stderr)
+                return 1
+            record = json.loads(lines[-1])
+            log("# step_ab " + json.dumps(
+                {"run": flag[2:], "checkout": root,
+                 **{k: record.get(k) for k in keys}}))
     return 0
 
 
@@ -1086,6 +1121,87 @@ def gpt2_step(root: str) -> int:
     record["bwd_ms"] = bwd_ms()
     log(json.dumps(record))
     return 0
+
+
+def resnet_step(root: str) -> int:
+    """``step_ab``'s other child: one step profile of ResNet-50 with
+    --fused-block --fused-conv3 (bf16, batch 512) with images/s and peak
+    memory, and the kernels' device times (``conv_kernel_ms``), with the
+    port of checkout ``root``; its record as the last line."""
+    import torch
+
+    sys.path.insert(0, str(Path(root).resolve()))
+    if not torch.cuda.is_available():
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    record = resnet_step_profile(["--fused-block", "--fused-conv3"],
+                                 ("fused_block", FLBN_KERNELS + FCBN_KERNELS))
+    record["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if record.get("wall_us"):
+        record["images_per_sec"] = RESNET_BATCH / record["wall_us"] * 1e6
+    record["conv_bn_us"] = record.get("by_class_us", {}).get("conv_bn")
+    record["kernel_ms"] = conv_kernel_ms()
+    log(json.dumps(record))
+    return 0
+
+
+def conv_kernel_ms() -> dict:
+    """Device times of #11-#13 at the four stride-1 3x3 shapes of ResNet-50
+    at batch 512 (prologue and ReLU on) and of #8-#10 at stage 1's conv3,
+    in bf16 and f32, and the 3x3 kernels' bf16 times summed over one
+    step's 13 layers (``step_*``)."""
+    import torch
+
+    from distributeddeeplearning_tpu_torch.ops import fused_conv_bn as fcbn
+    from distributeddeeplearning_tpu_torch.ops import fused_linear_bn as flbn
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    layers = resnet50_conv3_layers()
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        tdt = getattr(torch, dtype)
+        for b, h, w, c in sorted(set(layers)):
+            x, dy, y = (rand(b, h, w, c).to(tdt) for _ in range(3))
+            wt = rand(c, c, 3, 3, scale=(9 * c) ** -0.5).to(
+                tdt, memory_format=torch.channels_last)
+            vecs = (rand(c, scale=0.3), rand(c).abs() + 0.5,
+                    rand(c).abs() + 0.5, rand(c, scale=0.3))
+            ds, dss = rand(c, scale=0.1), rand(c, scale=0.1)
+            tag = f"{dtype}_{h}x{w}_c{c}"
+            out[f"fwd_{tag}"] = device_ms(lambda: fcbn.conv3x3_bn_fwd(
+                x, *vecs, wt, relu=True, bn=True))
+            out[f"dx_{tag}"] = device_ms(lambda: fcbn.conv3x3_bn_bwd_dx(
+                dy, y, ds, dss, wt, x, *vecs, relu=True, bn=True))
+            out[f"dw_{tag}"] = device_ms(lambda: fcbn.conv3x3_bn_bwd_dw(
+                x, *vecs, dy, y, ds, dss, relu=True, bn=True))
+            del x, dy, y
+            torch.cuda.empty_cache()
+        m, k, n, bn, relu = resnet50_linear_layers()[1]
+        x, wl = rand(m, k).to(tdt), rand(n, k, scale=k ** -0.5).to(tdt)
+        vecs = (rand(k, scale=0.3), rand(k).abs() + 0.5, rand(k).abs() + 0.5,
+                rand(k, scale=0.3))
+        dy, y = rand(m, n).to(tdt), rand(m, n).to(tdt)
+        ds, dss = rand(n, scale=0.1), rand(n, scale=0.1)
+        tag = f"{dtype}_m{m}_k{k}_n{n}"
+        out[f"linear_fwd_{tag}"] = device_ms(lambda: flbn.linear_bn_fwd(
+            x, *vecs, wl, relu=relu, bn=bn))
+        out[f"linear_dx_{tag}"] = device_ms(lambda: flbn.linear_bn_bwd_dx(
+            dy, y, ds, dss, wl, x, *vecs, relu=relu, bn=bn))
+        out[f"linear_dw_{tag}"] = device_ms(lambda: flbn.linear_bn_bwd_dw(
+            x, *vecs, dy, y, ds, dss, relu=relu, bn=bn))
+        del x, dy, y
+        torch.cuda.empty_cache()
+    for kind in ("fwd", "dx", "dw"):
+        out[f"step_{kind}_bfloat16"] = sum(
+            out[f"{kind}_bfloat16_{h}x{w}_c{c}"] for _, h, w, c in layers)
+    return out
 
 
 def phase_flash_vs_dense_step(failures) -> None:
@@ -1741,7 +1857,8 @@ def conv_bn_case(fcbn, b, h, w, cin, cout, bn, relu, dtype,
     ``torch.nn.grad.conv2d_input`` and ``conv2d_weight`` for the backward,
     with no prologue and no sums). The reductions run twice and must agree
     bit for bit; the dw check must fail a dw that lacks one of #13's chunks
-    of M."""
+    of M, and the check of #11's sums sums that lack one block's run of
+    pixels."""
     import torch
     import torch.nn.functional as F
 
@@ -1782,8 +1899,20 @@ def conv_bn_case(fcbn, b, h, w, cin, cout, bn, relu, dtype,
                   + (of - rf).abs().sum(dim=0) + 1e-30),
         col_share(ss, rss, FLBN_SUM_TOL * (rf * rf).sum(dim=0)
                   + (of * of - rf * rf).abs().sum(dim=0) + 1e-30)]
+    # The limits must see sums that lack one block's run of pixels: the
+    # middle block's, taken out of the kernel's own sums.
+    run = fcbn.fwd_run_rows(m, w, cin, cout, tdt)
+    r0 = (-(-m // run) // 2) * run
+    gone = of[r0:r0 + run].double()
+    lost_run = min(
+        col_share((s.double() - gone.sum(dim=0)).float(), rs,
+                  FLBN_SUM_TOL * rf.abs().sum(dim=0)
+                  + (of - rf).abs().sum(dim=0) + 1e-30)[1],
+        col_share((ss.double() - (gone * gone).sum(dim=0)).float(), rss,
+                  FLBN_SUM_TOL * (rf * rf).sum(dim=0)
+                  + (of * of - rf * rf).abs().sum(dim=0) + 1e-30)[1])
     finite = bool(torch.isfinite(of).all())
-    del out, ref, of, rf, s2, ss2
+    del out, ref, of, rf, s2, ss2, gone
 
     dx, db, dg = fcbn.conv3x3_bn_bwd_dx(dy, y, ds, dss, wt, x, *vecs, **mode)
     again = fcbn.conv3x3_bn_bwd_dx(dy, y, ds, dss, wt, x, *vecs, **mode)
@@ -1851,7 +1980,8 @@ def conv_bn_case(fcbn, b, h, w, cin, cout, bn, relu, dtype,
     for name, (kernel, plain, library) in runs.items():
         share = max(e[1] for e in errs[name])
         ok_repeat = repeat[name] is not False
-        sees_drop = name != "conv3x3_bn_bwd_dw" or dropped > 1.0
+        sees_drop = {"conv3x3_bn_bwd_dw": dropped > 1.0,
+                     "conv3x3_bn_fwd": lost_run > 1.0}.get(name, True)
         bound, by = conv_bn_bound(name, b, h, w, cin, cout, bn, dtype)
         rows_out.append({
             "kernel": name, "b": b, "h": h, "w": w, "cin": cin,
@@ -1860,6 +1990,8 @@ def conv_bn_case(fcbn, b, h, w, cin, cout, bn, relu, dtype,
             "err_over_tol": share, "repeats": repeat[name],
             **({"dropped_chunk_over_tol": dropped}
                if name == "conv3x3_bn_bwd_dw" else {}),
+            **({"lost_run_over_tol": lost_run}
+               if name == "conv3x3_bn_fwd" else {}),
             "ok": finite and share <= 1.0 and ok_repeat and sees_drop,
             "ms": device_ms(kernel), "plain_ms": device_ms(plain),
             "library_ms": device_ms(library), "bound_ms": bound,
@@ -1892,7 +2024,8 @@ def phase_conv_bn_grid(fcbn, failures) -> dict:
                 if not r["ok"]:
                     failures.append(f"{r['kernel']} disagrees with its plain "
                                     f"version or does not repeat, or its "
-                                    f"limit passes a lost chunk: {r}")
+                                    f"limit passes a lost chunk or run: "
+                                    f"{r}")
             torch.cuda.empty_cache()
     step = {}
     for name in ("conv3x3_bn_fwd", "conv3x3_bn_bwd_dx", "conv3x3_bn_bwd_dw"):
@@ -2071,10 +2204,14 @@ def parse_args(argv):
     parser.add_argument(
         "--step-ab", metavar="CHECKOUT", nargs="+",
         help="only time one GPT-2 small training step (the training path's "
-        "configuration) and the flash backward kernels with the port of "
-        "one CHECKOUT and of another (default: this one), in turns (first, "
-        "second, second, first)")
+        "configuration) with the flash backward kernels, and one bf16 "
+        "ResNet-50 --fused-block --fused-conv3 step at batch 512 with the "
+        "3x3 and 1x1 conv+BatchNorm kernels, with the port of one CHECKOUT "
+        "and of another (default: this one), in turns (first, second, "
+        "second, first), each in a process of its own")
     parser.add_argument("--gpt2-step", metavar="CHECKOUT",
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--resnet-step", metavar="CHECKOUT",
                         help=argparse.SUPPRESS)
     return parser.parse_args(argv)
 
@@ -2083,6 +2220,8 @@ if __name__ == "__main__":
     cli = parse_args(sys.argv[1:])
     if cli.gpt2_step:
         sys.exit(gpt2_step(cli.gpt2_step))
+    if cli.resnet_step:
+        sys.exit(resnet_step(cli.resnet_step))
     if cli.step_ab:
         if len(cli.step_ab) > 2:
             sys.exit("--step-ab takes one or two checkouts")

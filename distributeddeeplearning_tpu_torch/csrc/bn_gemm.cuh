@@ -1,6 +1,9 @@
 // The tile product shared by the port's BatchNorm-carrying GEMMs for Hopper
 // (sm_90a): the matmul kernels of fused_linear_bn.cu (a bottleneck's 1x1
-// convolutions) and the implicit-GEMM 3x3 kernels of fused_conv_bn.cu.
+// convolutions, #8-#10, bf16 and f32) and, of the implicit-GEMM 3x3 kernels
+// of fused_conv_bn.cu, the dx kernel (#12, bf16 and f32) and the f32
+// forward and dw (#11, #13). The bf16 3x3 forward and dw run on the wgmma
+// bodies of conv3x3_tc.cuh instead; nothing here serves them.
 //
 // An operand is a *source*: a struct with Source's interface (a Frag of
 // registers, fetch(row, col, frag) issuing one vector's global load,

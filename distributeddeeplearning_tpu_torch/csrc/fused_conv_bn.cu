@@ -30,9 +30,57 @@
 // bf16, 288 flops a byte, at the tensor cores' balance point (295), and dx
 // and dw, which read three activations, are bound by their bytes; at the
 // wider stages the bytes shrink (0.06 GB at 7 x 7, 512 channels) and the
-// tensor cores bound all three. The design is the simple one that is
-// right, on the tile product of bn_gemm.cuh (mma.sync.m16n8k16 for bf16,
-// FMA for f32):
+// tensor cores bound all three.
+//
+// bf16 forward and dw: wgmma on the tensor cores (conv3x3_tc.cuh, on
+// sm90.cuh), fcbn_fwd_tc_kernel and fcbn_bwd_dw_tc_kernel.
+// - A halo slab per pixel tile. A persistent block walks a fixed run of
+//   tiles of T pixels (256 in the forward, 128 in dw). For each 64-channel
+//   chunk it copies the rows the tile's nine taps read (2 W + T + 2 from
+//   p0 - W - 1, or three runs of T + 2 for an image wider than the tile)
+//   into shared memory by TMA, 128-byte-swizzled, and applies bn1's
+//   prologue to them once, in place, rounded to bf16. A tap (ty, tx) is
+//   then the slab shifted by ty * W + tx rows: the nine taps read each
+//   element from shared memory, none from device memory again, and none
+//   repeats the prologue. Out-of-image taps are masked per pixel (nine bits
+//   from its (h, w), computed once per tile with a multiply-high division),
+//   since prologue(0) != 0 makes zero-filled rows no padding.
+// - The shifted operand is the register one. A wgmma descriptor cannot
+//   start mid swizzle atom, and a tap's shift is any number of rows, so
+//   the slab side of every product is taken by ldmatrix (any row address)
+//   into the A registers and masked there; the other side is read through
+//   a descriptor that no tap moves. Forward: A = the slab (pixels x
+//   channels), B = the tap's weight tile (Cout block x 64 channels,
+//   K-major). dw: A = the slab transposed by ldmatrix.trans (channels x
+//   pixels, the mask on half-registers since the pixel is the contracted
+//   index), B = the tile's dY (pixels x Cout block, MN-major), transformed
+//   once (dy + ds + 2 y dss, rounded to bf16) in place of dy.
+// - No zero half, no repeated work. The forward's N is Cout in blocks of 64
+//   (two a block above 64 channels); dw's block owns 64 input x 64 output
+//   channels and all nine taps, one row of taps per warpgroup, so each
+//   tile's x, dy and y are read and transformed once per block.
+// - Loads and pipelines. One warp issues the TMA copies and an mbarrier per
+//   stage reports them: two slab stages (the next chunk's loads in flight
+//   while this one's products run); the forward keeps all nine weight
+//   tiles resident when Cin and Cout are 64 or less (stage 1: 72 KB) and
+//   otherwise streams them three taps ahead through a ring of four. The
+//   products run as a software pipeline: the next batch's fragments load
+//   while this batch's wgmmas run, two register buffers taking turns.
+// - The forward's epilogue stages each 64-column block of y, rounded to
+//   bf16, in the free slab stage, writes it by one TMA store, and sums its
+//   columns (y and y^2, over y as stored) in double from the same tile.
+// - Budgets (ptxas, -Xptxas -v). Forward: 256 threads, up to 255 registers;
+//   32 MT NB accumulator registers (MT: 64-pixel blocks a warpgroup, 2 at
+//   T = 256) and two fragment buffers of 4 MT KSB; 166 registers at stage
+//   1's <MT 2, NB 1, resident>, 241 at <2, 2, streamed>, no spills. dw: 384
+//   threads, 168 registers (the cap) = 96 accumulators + 24 fragment + 40
+//   per-channel constants + addressing, and ptxas spills 108 bytes (176
+//   bytes of loads). Shared memory: fwd_smem and dw_smem; at ResNet-50's
+//   four shapes the forward takes 177 KB (stage 1) or 153 KB, dw 130 KB
+//   (stage 1) or 114 KB.
+//
+// f32 and dx (#12): the first design, on the tile product of bn_gemm.cuh
+// (mma.sync.m16n8k16 for bf16 dx, FMA for f32):
 //
 // - Implicit GEMM. Each product runs over the (M, 9 * C) im2col matrix
 //   without materialising it: a source fetches 16 bytes of column k = tap *
@@ -41,27 +89,22 @@
 //   row -1 of an image) reads nothing and stores 0, after the prologue, as
 //   the reference's zeroed halo does. C % 8 == 0, so a 16-byte vector never
 //   straddles two taps. Neighbouring rows of a tile are neighbouring
-//   pixels, so the nine taps of a tile reread the same lines through L1/L2:
-//   the 9x read amplification of a materialised im2col stays on chip, which
-//   is what the reference's (th + 2, W + 2, C) VMEM halo slab was for. The
-//   slab, its three DMAs and the cross-cell VMEM accumulators are not
-//   carried over: blocks run in no order.
+//   pixels, so the nine taps of a tile reread the same lines through L1/L2.
 // - dx reads flip(w)^T in place: element (k = tap * Cout + n, c) of the
 //   contracted weight is w[n][8 - tap][c], so no flipped copy is made.
-// - Reductions without atomics, as bn_gemm.cuh's bodies take them: the
-//   forward and dx kernels give each block a fixed run of row tiles and
-//   sum its columns in double into a (splits, C) partial that a second
-//   kernel sums in a fixed order; dw cuts M into fixed chunks (about 1,024
-//   blocks: at stage 1 the output is 64 x 576 against 1.6 M contracted
-//   rows, five output tiles) whose f32 partials a second kernel sums in
-//   order. The results repeat bit for bit from run to run.
-// - Not yet: wgmma, TMA halo loads, a 64-wide tile for Cout = 64 (half of
-//   the 128 x 128 tile computes zeros there), cheaper tap arithmetic.
+//
+// Reductions without atomics, in every instance: the forward and dx give
+// each block a fixed run of pixel tiles and sum its columns in double into
+// a (splits, C) partial that a second kernel sums in a fixed order; dw cuts
+// M into fixed chunks whose f32 partials a second kernel sums in order.
+// The results repeat bit for bit from run to run on one card (the bf16
+// kernels size their grids by its SM count).
 //
 // M < 2^31 (the wrapper checks); Cin and Cout multiples of 8; operands
 // 16-byte aligned.
 
 #include "bn_gemm.cuh"
+#include "conv3x3_tc.cuh"
 
 namespace {
 
@@ -294,6 +337,233 @@ int launch_bwd_dw(const void* x, const float* mu, const float* inv,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores (conv3x3_tc.cuh)
+// ---------------------------------------------------------------------------
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point
+// query (so the library links nothing beyond the runtime).
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The tensor map of a row-major bf16 tensor of dims (innermost first) and
+// the row strides of the outer dims (bytes), read in boxes of `box`,
+// 128-byte-swizzled, out-of-bounds elements zero. Returns a CUDA error.
+int tensor_map(CUtensorMap* map, const void* base, int rank,
+               const cuuint64_t* dims, const cuuint64_t* strides,
+               const cuuint32_t* box) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
+      dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// (M, C) channels-last activations in boxes of 64 channels x `rows`.
+int rows_map(CUtensorMap* map, const void* base, long long M, int C,
+             int rows) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(C),
+                              static_cast<cuuint64_t>(M)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(C) * 2};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(rows)};
+  return tensor_map(map, base, 2, dims, strides, box);
+}
+
+int sm_count() {
+  int dev = 0, n = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return n > 0 ? n : 1;
+}
+
+// Tiles a block of a persistent grid: one block an SM over `units`
+// independent column blocks, each walking a run of `tiles`; normalised so
+// that cdiv(tiles, cdiv(tiles, per)) == per.
+long long tc_per(long long tiles, long long units) {
+  const long long sms = sm_count();
+  long long s = units >= sms ? 1 : sms / units;
+  if (s > tiles) s = tiles;
+  if (s < 1) s = 1;
+  const long long per = cdiv(tiles, s);
+  return cdiv(tiles, cdiv(tiles, per));
+}
+
+// The forward's instance for a shape: NB blocks of 64 output channels a
+// block (2 above 64), the nine weight tiles resident when Cin and Cout fit
+// one 64-wide tile, and tiles of 256 pixels unless the slab of a wide
+// image then overflows shared memory.
+struct FwdPlan {
+  int mt, nb, T, slab_bytes, smem;
+  bool res;
+  conv3::Slab slab;
+};
+
+FwdPlan fwd_plan(int W, int Cin, int Cout) {
+  FwdPlan p;
+  p.nb = Cout <= 64 ? 1 : 2;
+  p.res = p.nb == 1 && Cin <= 64;
+  for (p.mt = 2; p.mt >= 1; --p.mt) {
+    p.T = 128 * p.mt;
+    p.slab = conv3::make_slab(p.T, W);
+    p.slab_bytes = conv3::fwd_slab_bytes(p.slab);
+    p.smem = conv3::fwd_smem(p.nb, p.res, p.slab_bytes);
+    if (p.smem <= conv3::SMEM_LIMIT || p.mt == 1) break;
+  }
+  return p;
+}
+
+template <int MT, int NB, bool RES>
+int launch_fwd_tc_inst(const conv3::FwdArgs& a, const CUtensorMap (&maps)[3],
+                       int smem, dim3 grid, cudaStream_t s) {
+  auto kernel = conv3::fcbn_fwd_tc_kernel<MT, NB, RES>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, conv3::FWD_THREADS, smem, s>>>(a, maps[0], maps[1],
+                                                  maps[2]);
+  return cudaGetLastError();
+}
+
+int launch_fwd_tc(const void* x, const void* w, const float* mu,
+                  const float* inv, const float* gamma, const float* beta,
+                  void* y, double* part, float* sum, float* sumsq,
+                  long long M, int H, int W, int Cin, int Cout, bool relu,
+                  bool bn, int splits, cudaStream_t s) {
+  const FwdPlan p = fwd_plan(W, Cin, Cout);
+  conv3::FwdArgs a;
+  a.x = static_cast<const conv3::bf16*>(x);
+  a.w = static_cast<const conv3::bf16*>(w);
+  a.mu = mu;
+  a.inv = inv;
+  a.gamma = gamma;
+  a.beta = beta;
+  a.y = static_cast<conv3::bf16*>(y);
+  a.part = part;
+  a.M = M;
+  a.H = H;
+  a.W = W;
+  a.Cin = Cin;
+  a.Cout = Cout;
+  a.divH = conv3::make_div(H);
+  a.divW = conv3::make_div(W);
+  a.nc = static_cast<int>(cdiv(Cin, 64));
+  a.per = static_cast<int>(cdiv(cdiv(M, p.T), splits));
+  a.splits = splits;
+  a.prologue = !bn ? conv3::NONE : relu ? conv3::AFFINE_RELU : conv3::AFFINE;
+  a.slab = p.slab;
+  a.slab_bytes = p.slab_bytes;
+  CUtensorMap maps[3];  // x, w, y
+  int err = rows_map(&maps[0], x, M, Cin, conv3::BOXR);
+  if (err == cudaSuccess) err = rows_map(&maps[2], y, M, Cout, p.T);
+  if (err != cudaSuccess) return err;
+  // w (Cout, 9, Cin): boxes of 64 channels of one tap of NB * 64 rows.
+  const cuuint64_t wdims[3] = {static_cast<cuuint64_t>(Cin), 9,
+                               static_cast<cuuint64_t>(Cout)};
+  const cuuint64_t wstrides[2] = {static_cast<cuuint64_t>(Cin) * 2,
+                                  static_cast<cuuint64_t>(Cin) * 18};
+  const cuuint32_t wbox[3] = {64, 1, static_cast<cuuint32_t>(64 * p.nb)};
+  err = tensor_map(&maps[1], w, 3, wdims, wstrides, wbox);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(splits, static_cast<unsigned>(cdiv(Cout, 64 * p.nb)));
+  if (p.res)
+    err = p.mt == 2 ? launch_fwd_tc_inst<2, 1, true>(a, maps, p.smem, grid, s)
+                    : launch_fwd_tc_inst<1, 1, true>(a, maps, p.smem, grid, s);
+  else if (p.nb == 1)
+    err = p.mt == 2 ? launch_fwd_tc_inst<2, 1, false>(a, maps, p.smem, grid, s)
+                    : launch_fwd_tc_inst<1, 1, false>(a, maps, p.smem, grid,
+                                                      s);
+  else
+    err = p.mt == 2 ? launch_fwd_tc_inst<2, 2, false>(a, maps, p.smem, grid, s)
+                    : launch_fwd_tc_inst<1, 2, false>(a, maps, p.smem, grid,
+                                                      s);
+  if (err != cudaSuccess) return err;
+  return column_finish(part, sum, sumsq, Cout, splits, s);
+}
+
+long long dw_tc_per(long long M, int Cin, int Cout) {
+  return tc_per(cdiv(M, conv3::DW_T), cdiv(Cin, 64) * cdiv(Cout, 64));
+}
+
+int launch_bwd_dw_tc(const void* x, const float* mu, const float* inv,
+                     const float* gamma, const float* beta, const void* dy,
+                     const void* y, const float* ds, const float* dss,
+                     float* work, void* dw, long long M, int H, int W,
+                     int Cin, int Cout, bool relu, bool bn, int splits,
+                     cudaStream_t s) {
+  conv3::DwArgs a;
+  a.x = static_cast<const conv3::bf16*>(x);
+  a.mu = mu;
+  a.inv = inv;
+  a.gamma = gamma;
+  a.beta = beta;
+  a.dy = static_cast<const conv3::bf16*>(dy);
+  a.y = static_cast<const conv3::bf16*>(y);
+  a.ds = ds;
+  a.dss = dss;
+  a.work = work;
+  a.M = M;
+  a.H = H;
+  a.W = W;
+  a.Cin = Cin;
+  a.Cout = Cout;
+  a.divH = conv3::make_div(H);
+  a.divW = conv3::make_div(W);
+  a.per = static_cast<int>(cdiv(cdiv(M, conv3::DW_T), splits));
+  a.prologue = !bn ? conv3::NONE : relu ? conv3::AFFINE_RELU : conv3::AFFINE;
+  a.slab = conv3::make_slab(conv3::DW_T, W);
+  a.slab_bytes = conv3::round_up(a.slab.rows * conv3::ROW, 1024);
+  const int smem = conv3::dw_smem(a.slab_bytes);
+  CUtensorMap xmap, dymap, ymap;
+  int map_err = rows_map(&xmap, x, M, Cin, conv3::BOXR);
+  if (map_err == cudaSuccess)
+    map_err = rows_map(&dymap, dy, M, Cout, conv3::DW_T);
+  if (map_err == cudaSuccess)
+    map_err = rows_map(&ymap, y, M, Cout, conv3::DW_T);
+  if (map_err != cudaSuccess) return map_err;
+  cudaError_t err = cudaFuncSetAttribute(
+      conv3::fcbn_bwd_dw_tc_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(splits, static_cast<unsigned>(cdiv(Cin, 64)),
+                  static_cast<unsigned>(cdiv(Cout, 64)));
+  conv3::fcbn_bwd_dw_tc_kernel<<<grid, conv3::DW_THREADS, smem, s>>>(
+      a, xmap, dymap, ymap);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long nk = 9LL * Cin * Cout;
+  long long blocks = cdiv(nk, THREADS);
+  if (blocks > 4096) blocks = 4096;
+  fcbn_dw_finish_kernel<conv3::bf16>
+      <<<static_cast<int>(blocks), THREADS, 0, s>>>(
+          work, static_cast<conv3::bf16*>(dw), nk, splits);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. M = B * H * W. Every entry point
@@ -301,15 +571,26 @@ int launch_bwd_dw(const void* x, const float* mu, const float* inv,
 // of its launches (0 on success). With bn = 0 the vectors mu, inv, gamma,
 // beta are not read and may be null.
 
-// Row-tile runs of fcbn_fwd (Q = Cout) and fcbn_bwd_dx (Q = Cin): the
-// wrapper sizes their (2, splits, Q) double workspace with it.
+// Row-tile runs of fcbn_bwd_dx (Q = Cin): the wrapper sizes its (2,
+// splits, Q) double workspace with it.
 extern "C" int fcbn_row_splits(long long M, int Q) { return row_splits(M, Q); }
+
+// Pixels in one block's run of fcbn_fwd: the wrapper passes splits =
+// cdiv(M, run) and sizes the (2, splits, Cout) double workspace with it;
+// block s sums its columns over pixels [s * run, (s + 1) * run).
+extern "C" long long fcbn_fwd_run_rows(long long M, int W, int Cin, int Cout,
+                                       int dtype) {
+  if (dtype == 0) return cdiv(cdiv(M, TILE), row_splits(M, Cout)) * TILE;
+  const FwdPlan p = fwd_plan(W, Cin, Cout);
+  return tc_per(cdiv(M, p.T), cdiv(Cout, 64 * p.nb)) * p.T;
+}
 
 // Contracted chunks of fcbn_bwd_dw: its (splits, Cout, 9 * Cin) f32
 // workspace.
 extern "C" int fcbn_dw_splits(long long M, int Cin, int Cout, int dtype) {
-  return dw_splits(M, Cout, 9 * Cin,
-                   dtype == 0 ? F32Engine::BR : Bf16Engine::BR);
+  if (dtype == 0) return dw_splits(M, Cout, 9 * Cin, F32Engine::BR);
+  const long long tiles = cdiv(M, conv3::DW_T);
+  return static_cast<int>(cdiv(tiles, dw_tc_per(M, Cin, Cout)));
 }
 
 extern "C" int fcbn_fwd(const void* x, const void* w, const void* mu,
@@ -330,9 +611,8 @@ extern "C" int fcbn_fwd(const void* x, const void* w, const void* mu,
              ? launch_fwd<F32Engine>(x, w, m, i, g, b, y, part, s0, s1, M, H,
                                      W, Cin, Cout, relu != 0, bn != 0, splits,
                                      s)
-             : launch_fwd<Bf16Engine>(x, w, m, i, g, b, y, part, s0, s1, M,
-                                      H, W, Cin, Cout, relu != 0, bn != 0,
-                                      splits, s);
+             : launch_fwd_tc(x, w, m, i, g, b, y, part, s0, s1, M, H, W,
+                             Cin, Cout, relu != 0, bn != 0, splits, s);
 }
 
 // dbeta, dgamma and work are not written with bn = 0 and may be null.
@@ -380,9 +660,9 @@ extern "C" int fcbn_bwd_dw(const void* x, const void* mu, const void* inv,
              ? launch_bwd_dw<F32Engine>(x, m, i, g, b, dy, y, d0, d1, part,
                                         dw, M, H, W, Cin, Cout, relu != 0,
                                         bn != 0, splits, s)
-             : launch_bwd_dw<Bf16Engine>(x, m, i, g, b, dy, y, d0, d1, part,
-                                         dw, M, H, W, Cin, Cout, relu != 0,
-                                         bn != 0, splits, s);
+             : launch_bwd_dw_tc(x, m, i, g, b, dy, y, d0, d1, part, dw, M,
+                                H, W, Cin, Cout, relu != 0, bn != 0, splits,
+                                s);
 }
 
 extern "C" const char* fcbn_error_string(int code) {

@@ -16,6 +16,15 @@ what the design does about it):
   through the prologue;
 - ``_bwd_dw_kernel`` -> :func:`conv3x3_bn_bwd_dw`: dw = patches(a)^T @ dY.
 
+In bf16 the forward and dw run on the tensor cores (wgmma, with TMA
+copies, ``csrc/conv3x3_tc.cuh``): each block applies bn1's prologue once to
+a halo slab of its pixel tile in shared memory and reads the nine taps as
+row shifts of it, in registers; both kernels size their grids by the card's
+SM count (:func:`fwd_run_rows`, :func:`dw_splits`). dx, and every float32
+instance, run the mma.sync / FMA implicit GEMM of ``csrc/bn_gemm.cuh``. The
+tensor-core kernels take every shape the wrappers accept, so nothing is
+routed elsewhere.
+
 The plain versions repeat the Pallas kernels' rounding points: a is rounded
 to x's dtype before the product, y is stored in x's dtype and the sums are
 over y as stored; dY is rounded to the activations' dtype in #12 and #13;
@@ -219,6 +228,16 @@ def _ohwi(w: torch.Tensor) -> torch.Tensor:
     return w.permute(0, 2, 3, 1).contiguous()
 
 
+def fwd_run_rows(m: int, w: int, cin: int, cout: int,
+                 dtype: torch.dtype) -> int:
+    """The pixels of one block's run in kernel #11 at this shape (image
+    width ``w``): block s sums the columns of y over pixels [s * run, (s +
+    1) * run) into its own partial, and the partials are summed in order.
+    Depends on the current card's SM count for bf16."""
+    return _fn("fcbn_fwd_run_rows", (_L, _I, _I, _I, _I), _L)(
+        m, w, cin, cout, _DTYPES[dtype])
+
+
 def conv3x3_bn_fwd_cuda(x, mu, inv, gamma, beta, w, *, relu: bool,
                         bn: bool):
     """Launch kernel #11: (y, sum, sumsq) as
@@ -227,12 +246,12 @@ def conv3x3_bn_fwd_cuda(x, mu, inv, gamma, beta, w, *, relu: bool,
     b, h, wd, cin = x.shape
     cout, m = w.shape[0], b * h * wd
     wk = _ohwi(w)
-    splits = _fn("fcbn_row_splits", (_L, _I))(m, cout)
     y = torch.empty((b, h, wd, cout), dtype=x.dtype, device=x.device)
-    work = torch.empty((2, splits, cout), dtype=torch.float64,
-                       device=x.device)
     s, ss = _f32(cout, x), _f32(cout, x)
     with torch.cuda.device(x.device):
+        splits = -(-m // fwd_run_rows(m, wd, cin, cout, x.dtype))
+        work = torch.empty((2, splits, cout), dtype=torch.float64,
+                           device=x.device)
         _run("fcbn_fwd", (_P,) * 10 + (_L,) + (_I,) * 8,
              x.data_ptr(), wk.data_ptr(), _ptr(mu), _ptr(inv), _ptr(gamma),
              _ptr(beta), y.data_ptr(), work.data_ptr(), s.data_ptr(),
@@ -267,7 +286,9 @@ def conv3x3_bn_bwd_dx_cuda(dy, y, ds, dss, w, x, mu, inv, gamma, beta, *,
 
 def dw_splits(m: int, cin: int, cout: int, dtype: torch.dtype) -> int:
     """The number of chunks of M = B * H * W that kernel #13 sums
-    separately (and then in order) at this shape."""
+    separately (and then in order) at this shape; each but the last
+    covers the same number of pixels. Depends on the current card's SM
+    count for bf16."""
     return _fn("fcbn_dw_splits", (_L, _I, _I, _I))(m, cin, cout,
                                                     _DTYPES[dtype])
 
@@ -279,10 +300,10 @@ def conv3x3_bn_bwd_dw_cuda(x, mu, inv, gamma, beta, dy, y, ds, dss, *,
     global bwd_dw_launches
     b, h, wd, cin = x.shape
     cout, m = dy.shape[-1], b * h * wd
-    splits = dw_splits(m, cin, cout, x.dtype)
-    work = _f32(9 * cin, x, splits, cout)
     dw = torch.empty((cout, 3, 3, cin), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
+        splits = dw_splits(m, cin, cout, x.dtype)
+        work = _f32(9 * cin, x, splits, cout)
         _run("fcbn_bwd_dw", (_P,) * 11 + (_L,) + (_I,) * 8,
              x.data_ptr(), _ptr(mu), _ptr(inv), _ptr(gamma), _ptr(beta),
              dy.data_ptr(), y.data_ptr(), ds.data_ptr(), dss.data_ptr(),

@@ -680,14 +680,24 @@ def _fcbn_inputs(device, dtype, b, h, w, cin, cout, seed):
 @pytest.mark.parametrize("b,h,w,cin,cout", [(3, 7, 7, 24, 40),
                                             (4, 9, 13, 64, 32),
                                             (2, 28, 28, 136, 144),
-                                            (16, 56, 56, 64, 64)])
+                                            (16, 56, 56, 64, 64),
+                                            (5, 14, 14, 128, 128),
+                                            (6, 7, 7, 256, 136),
+                                            (2, 9, 11, 72, 64),
+                                            (2, 12, 10, 64, 8),
+                                            (1, 4, 300, 16, 24)])
 def test_conv_bn_kernels_match_plain(cuda_device, monkeypatch, dtype,
                                      variant, b, h, w, cin, cout):
     """#11-#13 against their plain versions: W = 7 and odd sides (a row
     tile spans several images, and each tap must stay in its own image),
     Cin != Cout, channels above one 128-wide tile and not a multiple of it,
-    and stage 1's widths. The plain versions' convolutions in full f32
-    (TF32 off), as the kernels compute."""
+    and stage 1's widths. For the bf16 tensor-core kernels' tiling: W = 14
+    and 7 at 128 channels and more (a 128- or 256-pixel tile spans several
+    images), M a multiple of neither tile (980, 294), Cin = 72 (a second
+    64-channel chunk of 8 channels), Cout = 8 (one 64-wide block of
+    8), and an image wider than the tile (W = 300: the halo slab in three
+    segments). The plain versions' convolutions in full f32 (TF32 off), as
+    the kernels compute."""
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     bn, relu = FLBN_VARIANTS[variant]
     x, wt, vecs, dy, y, ds, dss = _fcbn_inputs(cuda_device, dtype, b, h, w,
@@ -740,6 +750,39 @@ def test_conv_bn_kernels_match_plain(cuda_device, monkeypatch, dtype,
     torch.cuda.synchronize()
     assert (tfc.fwd_launches, tfc.bwd_dx_launches,
             tfc.bwd_dw_launches) == tuple(c + 1 for c in counts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w,cin,cout", [(16, 56, 56, 64, 64),
+                                            (8, 14, 14, 256, 256)])
+def test_conv_bn_sums_fail_without_one_run(cuda_device, monkeypatch, dtype,
+                                           b, h, w, cin, cout):
+    """#11's sum(y) and sum(y^2) pass their limit, and sums that lack one
+    block's run of pixels (fwd_run_rows: the middle block's, taken out of
+    the kernel's own sums) fail it."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    x, wt, vecs, _, _, _, _ = _fcbn_inputs(cuda_device, dtype, b, h, w,
+                                           cin, cout, 7)
+    out, s, ss = tfc.conv3x3_bn_fwd(x, *vecs, wt, relu=True, bn=True)
+    ref, rs, rss = tfc.conv3x3_bn_fwd_reference(x, *vecs, wt, relu=True,
+                                                bn=True)
+    rf, of = _rows(ref).float(), _rows(out).float()
+    terms = (rf.abs().sum(dim=0), (rf * rf).sum(dim=0))
+    flips = ((of - rf).abs().sum(dim=0), (of * of - rf * rf).abs().sum(dim=0))
+    _sums_close(s, rs, terms[0], flips[0])
+    _sums_close(ss, rss, terms[1], flips[1])
+    m = b * h * w
+    run = tfc.fwd_run_rows(m, w, cin, cout, dtype)
+    assert 0 < run < m
+    r0 = (-(-m // run) // 2) * run
+    gone = of[r0:r0 + run].double()
+    for got, want, t, f, lost in ((s, rs, terms[0], flips[0], gone),
+                                  (ss, rss, terms[1], flips[1],
+                                   gone * gone)):
+        with pytest.raises(AssertionError):
+            _sums_close((got.double() - lost.sum(dim=0)).float(), want, t,
+                        f)
 
 
 @pytest.mark.cuda
