@@ -9,7 +9,8 @@ Run from the root of a checkout. Phases:
 2. build every kernel of the port from ``distributeddeeplearning_tpu_torch/
    csrc`` (one ``nvcc`` per source, all started together), timed, with
    the registers and spills from ptxas of the tensor-core kernels (the
-   flash backward's, the bf16 3x3 forward's and dw's);
+   flash forward's and backward's, the bf16 1x1 dw's and 3x3 forward's
+   and dw's);
 3. the flash forward against its plain PyTorch version on the card over a
    grid of shapes, with its device time (CUDA-graph replay, no host launch
    work), its eager per-call time, the plain version's and the one-call
@@ -27,9 +28,9 @@ Run from the root of a checkout. Phases:
    rate in {0, 0.1}, timed beside their bounds and, at rate 0, the backward
    of ``scaled_dot_product_attention`` (device time, and eager);
 7. the training path's kernel rows, at its shape (B=16, S=1024, H=12, D=64,
-   bf16, causal, rate 0.1; the backward kernels at rate 0 too), and the
-   dq and dk/dv kernels run twice there in bf16 and f32, which must
-   repeat bit for bit;
+   bf16, causal, rate 0.1; each kernel at rate 0 too, beside the library
+   yardstick there), and the forward, dq and dk/dv kernels run twice there
+   in bf16 and f32, which must repeat bit for bit;
 8. the training path: ``python -m distributeddeeplearning_tpu_torch.train
    --model gpt2_small --batch-size 16 --seq-len 1024 --attn flash
    --synthetic`` for a few steps (bf16 compute, f32 masters, dropout 0.1);
@@ -90,12 +91,14 @@ non-zero without that last line, and so does a machine without a card.
 
 runs none of that: it times, with the port of CHECKOUT and of OTHER (by
 default this checkout), one step of the GPT-2 training path with the flash
-backward kernels, and one bf16 step of ResNet-50 ``--fused-block
---fused-conv3`` at batch 512 (wall, busy, the conv_bn class, images/s,
-peak memory) with the device times of #11-#13 at the four stride-1 3x3
-shapes (bf16 and f32) and of #8-#10 at stage 1's conv3; each checkout and
-each of the two in a process of its own, in turns (CHECKOUT, OTHER, OTHER,
-CHECKOUT), for a before/after comparison on one card.
+kernels' device times (#1-#3 at two shapes, and SDPA's forward beside
+#1), and one bf16 step of ResNet-50 ``--fused-block --fused-conv3`` at
+batch 512 (wall, busy, the conv_bn and linear_bn classes, images/s, peak
+memory) with the device times of #11-#13 at the four stride-1 3x3 shapes
+(bf16 and f32), of #8-#10 at stage 1's conv3 and of #10 over one step's
+36 layers; each checkout and each of the two in a process of its own, in
+turns (CHECKOUT, OTHER, OTHER, CHECKOUT), for a before/after comparison on
+one card.
 """
 
 from __future__ import annotations
@@ -365,22 +368,24 @@ def phase_build(kernels) -> None:
         f"{time.perf_counter() - t0:.2f} s -> "
         f"{', '.join(p.name for p in paths.values())}")
     for source in sources:
-        if source.startswith(("flash_attention_bwd", "fused_conv_bn")):
-            log(f"# ptxas {source}: " + json.dumps(ptxas_report(
-                _build.build_log(paths[source]).read_text())))
+        report = ptxas_report(_build.build_log(paths[source]).read_text())
+        if report:
+            log(f"# ptxas {source}: " + json.dumps(report))
 
 
 def ptxas_key(mangled: str) -> str | None:
-    """The report's name of a kernel instance: the flash backward's as
-    name<D,dropout>, the bf16 3x3 kernels' as name<template arguments>
-    (the forward's MT, NB, resident weights); None for the others."""
+    """The report's name of a kernel instance: the flash backward's and
+    the tensor-core forward's as name<D,dropout>, the bf16 tensor-core
+    BatchNorm kernels' as name<template arguments> (the 3x3 forward's MT,
+    NB, resident weights; the 1x1 dw's KW, NW); None for the others."""
     import re
 
-    k = re.search(r"(flash_(?:dq|dkv)(?:_tc)?_kernel)ILi(\d+)E"
+    k = re.search(r"(flash_(?:dq|dkv|fwd_tc)(?:_tc)?_kernel)ILi(\d+)E"
                   r"(?:Li\d+E)*Lb([01])E", mangled)
     if k:
         return f"{k.group(1)}<{k.group(2)},{k.group(3)}>"
-    k = re.search(r"(fcbn_\w+?_tc_kernel)(?:I((?:L[a-z]\d+E)+)E)?", mangled)
+    k = re.search(r"((?:fcbn|flbn)_\w+?_tc_kernel)(?:I((?:L[a-z]\d+E)+)E)?",
+                  mangled)
     if k:
         args = re.findall(r"L[a-z](\d+)E", k.group(2) or "")
         return k.group(1) + (f"<{','.join(args)}>" if args else "")
@@ -642,9 +647,11 @@ def phase_gpt2(kernels, failures, scratch: Path) -> dict:
 # Kernel classes of a step profile, by a substring of the kernel's name; the
 # first match wins.
 FLASH_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel",
-                 "flash_dq_tc_kernel", "flash_dkv_tc_kernel")
+                 "flash_fwd_tc_kernel", "flash_dq_tc_kernel",
+                 "flash_dkv_tc_kernel")
 FLBN_KERNELS = ("flbn_fwd_kernel", "flbn_bwd_dx_kernel", "flbn_bwd_dw_kernel",
-                "flbn_column_finish_kernel", "flbn_dw_finish_kernel")
+                "flbn_bwd_dw_tc_kernel", "flbn_column_finish_kernel",
+                "flbn_dw_finish_kernel")
 FCBN_KERNELS = ("fcbn_fwd_kernel", "fcbn_bwd_dx_kernel", "fcbn_bwd_dw_kernel",
                 "fcbn_fwd_tc_kernel", "fcbn_bwd_dw_tc_kernel",
                 "fcbn_column_finish_kernel", "fcbn_dw_finish_kernel")
@@ -771,12 +778,12 @@ def phase_llama(fa, failures) -> None:
 
 
 def bwd_case(fa, s, b, h, d, dtype, causal, lengths, rate, seed,
-             library: bool) -> list[dict]:
+             library: bool, fwd: bool = False) -> list[dict]:
     """One backward grid row: the forward kernel's o and lse feed the dq
     and dk/dv kernels and their plain versions. Returns the rows (the
-    forward's too when it drops), each with errors, device times, bound
-    and, when ``library``, the library yardstick at rate 0: the forward
-    and backward (dq, dk and dv together) of
+    forward's too when it drops, or with ``fwd``), each with errors,
+    device times, bound and, when ``library``, the library yardstick at
+    rate 0: the forward and backward (dq, dk and dv together) of
     ``scaled_dot_product_attention`` with the boolean mask, both as device
     time (``library_ms``), and the backward's eager time as a caller pays
     it, host work included (``library_call_ms``)."""
@@ -822,7 +829,7 @@ def bwd_case(fa, s, b, h, d, dtype, causal, lengths, rate, seed,
         lib_bwd_call = call_ms(lib_grad)
         del out
     rows = []
-    if rate > 0.0:
+    if rate > 0.0 or fwd:
         ref_o, ref_lse = fa.flash_attention_reference(q, k, v, mask, causal,
                                                       **drop)
         err, share = row_error(o, ref_o, *TOL[dtype])
@@ -905,7 +912,7 @@ def phase_train_rows(fa) -> dict:
     """Each kernel's row at the training path's shape: B=16, S=1024, 12
     heads of 64, bf16, causal, every key live, dropout 0.1. The library
     yardstick there is taken at rate 0 on the same inputs (no library call
-    applies the hash mask), so the backward kernels are timed at rate 0 too
+    applies the hash mask), so every kernel is timed at rate 0 too
     (``ms_rate0``): that pair compares like with like."""
     import torch
 
@@ -913,7 +920,7 @@ def phase_train_rows(fa) -> dict:
             [TRAIN_SEQ] * TRAIN_BATCH)
     rows = {r["kernel"]: r for r in bwd_case(*args, 0.1, SEED + 11,
                                              library=True)}
-    for r in bwd_case(*args, 0.0, SEED + 11, library=False):
+    for r in bwd_case(*args, 0.0, SEED + 11, library=False, fwd=True):
         rows[r["kernel"]]["ms_rate0"] = r["ms"]
     for r in rows.values():
         log("# train_shape " + json.dumps(r))
@@ -922,9 +929,10 @@ def phase_train_rows(fa) -> dict:
 
 
 def phase_bwd_repeat(fa, failures) -> None:
-    """dq and dk/dv at the training shape (causal, dropout 0.1), in bf16
-    and f32, run twice on the same inputs: every output bit must repeat,
-    since each element is summed in one fixed order without atomics."""
+    """The forward, dq and dk/dv at the training shape (causal, dropout
+    0.1), in bf16 and f32, run twice on the same inputs: every output bit
+    must repeat, since each element is summed in one fixed order without
+    atomics."""
     import torch
 
     dev = torch.device("cuda")
@@ -934,18 +942,20 @@ def phase_bwd_repeat(fa, failures) -> None:
         q, k, v, do = (torch.randn(shape, generator=gen, device=dev)
                        .to(getattr(torch, dtype)) for _ in range(4))
         mask = torch.ones(shape[:2], dtype=torch.int32, device=dev)
-        o, lse = fa.flash_attention_fwd(q, k, v, mask, causal=True,
-                                        dropout_rate=0.1, dropout_seed=SEED)
+        fwds = [fa.flash_attention_fwd(q, k, v, mask, causal=True,
+                                       dropout_rate=0.1, dropout_seed=SEED)
+                for _ in range(2)]
+        o, lse = fwds[0]
         args = (q, k, v, mask, lse, do, fa._delta(do, o), True, 0.1, SEED)
-        runs = [(fa.flash_attention_dq_cuda(*args),
-                 *fa.flash_attention_dkv_cuda(*args)) for _ in range(2)]
+        runs = [(*fwd, fa.flash_attention_dq_cuda(*args),
+                 *fa.flash_attention_dkv_cuda(*args)) for fwd in fwds]
         torch.cuda.synchronize()
         same = [bool(torch.equal(a, b)) for a, b in zip(*runs)]
-        log(f"# bwd_repeat {dtype}: dq, dk, dv bit for bit {same}")
+        log(f"# bwd_repeat {dtype}: o, lse, dq, dk, dv bit for bit {same}")
         if not all(same):
-            failures.append(f"flash backward ({dtype}) does not repeat bit "
-                            f"for bit: dq, dk, dv {same}")
-        del runs
+            failures.append(f"flash kernels ({dtype}) do not repeat bit for "
+                            f"bit: o, lse, dq, dk, dv {same}")
+        del runs, fwds
         torch.cuda.empty_cache()
 
 
@@ -1036,7 +1046,7 @@ def gpt2_step_profile() -> dict:
     return profile
 
 
-# Shapes of step_ab's backward kernel times: GPT-2's training shape, and
+# Shapes of step_ab's flash kernel times: GPT-2's training shape, and
 # D=128 at S=4096; causal, (B, S, H, D).
 AB_SHAPES = ((TRAIN_BATCH, TRAIN_SEQ, 12, 64), (1, 4096, 32, 128))
 
@@ -1048,15 +1058,16 @@ AB_RUNS = (
                      "flash_share_of_busy", "tokens_per_sec",
                      "peak_memory_gb", "bwd_ms")),
     ("--resnet-step", ("wall_us", "device_busy_us", "idle_share",
-                       "conv_bn_us", "fused_block_share_of_busy",
+                       "conv_bn_us", "linear_bn_us",
+                       "fused_block_share_of_busy",
                        "images_per_sec", "peak_memory_gb", "kernel_ms")),
 )
 
 
 def step_ab(first: str, second: str) -> int:
-    """The GPT-2 training path's step profile with the flash backward
-    kernels' device times, then the ResNet-50 --fused-block --fused-conv3
-    step's with the 3x3 and 1x1 kernels' device times, with the port of
+    """The GPT-2 training path's step profile with the flash kernels'
+    device times, then the ResNet-50 --fused-block --fused-conv3 step's
+    with the 3x3 and 1x1 kernels' device times, with the port of
     checkout ``first`` and of ``second``, each in a process of its own, in
     turns: first, second, second, first. Kernels build into each
     checkout's own cache."""
@@ -1077,9 +1088,12 @@ def step_ab(first: str, second: str) -> int:
 
 
 def bwd_ms() -> dict:
-    """Device times of the dq and dk/dv kernels at AB_SHAPES (bf16,
-    causal, every key live), at rate 0.1 and 0."""
+    """Device times of the forward, dq and dk/dv kernels at AB_SHAPES (bf16,
+    causal, every key live), at rate 0.1 and 0, and of the library
+    yardstick's forward (``scaled_dot_product_attention`` with the causal
+    mask as a boolean mask, as the grid times it) at rate 0."""
     import torch
+    import torch.nn.functional as F
 
     from distributeddeeplearning_tpu_torch.ops import flash_attention as fa
 
@@ -1097,19 +1111,27 @@ def bwd_ms() -> dict:
             args = (q, k, v, mask, lse, do, fa._delta(do, o), True, rate,
                     SEED)
             tag = f"s{s}_d{d}_rate{rate}"
+            out[f"fwd_{tag}"] = device_ms(lambda: fa.flash_attention_fwd(
+                q, k, v, mask, causal=True, dropout_rate=rate,
+                dropout_seed=SEED))
             out[f"dq_{tag}"] = device_ms(
                 lambda: fa.flash_attention_dq_cuda(*args))
             out[f"dkv_{tag}"] = device_ms(
                 lambda: fa.flash_attention_dkv_cuda(*args))
-        del q, k, v, do, o
+        keep = torch.ones((s, s), dtype=torch.bool, device=dev).tril()
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        with torch.no_grad():
+            out[f"sdpa_fwd_s{s}_d{d}_rate0.0"] = device_ms(
+                lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                       attn_mask=keep))
+        del q, k, v, do, o, qt, kt, vt
         torch.cuda.empty_cache()
     return out
 
 
 def gpt2_step(root: str) -> int:
-    """``step_ab``'s child: one step profile and the backward kernels'
-    times with the port of checkout ``root``, its record as the last
-    line."""
+    """``step_ab``'s child: one step profile and the flash kernels' times
+    with the port of checkout ``root``, its record as the last line."""
     import torch
 
     sys.path.insert(0, str(Path(root).resolve()))
@@ -1142,6 +1164,7 @@ def resnet_step(root: str) -> int:
     if record.get("wall_us"):
         record["images_per_sec"] = RESNET_BATCH / record["wall_us"] * 1e6
     record["conv_bn_us"] = record.get("by_class_us", {}).get("conv_bn")
+    record["linear_bn_us"] = record.get("by_class_us", {}).get("linear_bn")
     record["kernel_ms"] = conv_kernel_ms()
     log(json.dumps(record))
     return 0
@@ -1150,8 +1173,9 @@ def resnet_step(root: str) -> int:
 def conv_kernel_ms() -> dict:
     """Device times of #11-#13 at the four stride-1 3x3 shapes of ResNet-50
     at batch 512 (prologue and ReLU on) and of #8-#10 at stage 1's conv3,
-    in bf16 and f32, and the 3x3 kernels' bf16 times summed over one
-    step's 13 layers (``step_*``)."""
+    in bf16 and f32, the 3x3 kernels' bf16 times summed over one step's 13
+    layers (``step_*``), and #10's bf16 time summed over the 36 1x1
+    layers (``step_linear_dw_bfloat16``)."""
     import torch
 
     from distributeddeeplearning_tpu_torch.ops import fused_conv_bn as fcbn
@@ -1201,6 +1225,18 @@ def conv_kernel_ms() -> dict:
     for kind in ("fwd", "dx", "dw"):
         out[f"step_{kind}_bfloat16"] = sum(
             out[f"{kind}_bfloat16_{h}x{w}_c{c}"] for _, h, w, c in layers)
+    linear = resnet50_linear_layers()
+    dw_ms = {}
+    for m, k, n, bn, relu in sorted(set(linear)):
+        x, dy, y = (rand(m, c).bfloat16() for c in (k, n, n))
+        vecs = (rand(k, scale=0.3), rand(k).abs() + 0.5, rand(k).abs() + 0.5,
+                rand(k, scale=0.3)) if bn else (None,) * 4
+        ds, dss = rand(n, scale=0.1), rand(n, scale=0.1)
+        dw_ms[m, k, n, bn, relu] = device_ms(lambda: flbn.linear_bn_bwd_dw(
+            x, *vecs, dy, y, ds, dss, relu=relu, bn=bn))
+        del x, dy, y
+        torch.cuda.empty_cache()
+    out["step_linear_dw_bfloat16"] = sum(dw_ms[v] for v in linear)
     return out
 
 

@@ -4,7 +4,8 @@
 // building blocks of sm90.cuh. fused_conv_bn.cu's note gives what they
 // compute, what bounds them and why the design is this one; this header
 // holds the pieces, so that the dx kernel (#12, the forward's product with
-// dY and flip(w)^T) can move onto them.
+// dY and flip(w)^T) can move onto them. bn1's prologue, dY's terms and the
+// host's tensor maps live in bn_tc.cuh, shared with the 1x1 dw (#10).
 //
 // The halo slab. A tile of T output pixels p0 .. p0 + T - 1 (rows of the
 // (M, C) channels-last matrix) reads, through its nine taps, the rows
@@ -41,13 +42,22 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "bn_tc.cuh"
 #include "sm90.cuh"
 
 namespace conv3 {
 
 using bf16 = __nv_bfloat16;
+using bntc::AFFINE;
+using bntc::AFFINE_RELU;
+using bntc::Affine;
+using bntc::DyTerms;
+using bntc::NONE;
+using bntc::ROW;  // bytes of a slab or tile row: 64 channels
+using bntc::apply_prologue;
+using bntc::round_up;
+using bntc::swz;
 
-constexpr int ROW = 128;          // bytes of a slab or tile row: 64 channels
 constexpr int BOXR = 64;          // rows of one TMA box of a slab
 constexpr int LA = 3;             // forward: weight tiles loaded ahead
 constexpr int NBUF = LA + 1;      //          weight tiles in the ring
@@ -58,22 +68,12 @@ constexpr int RED_BYTES = 8 * 2 * 64 * 8;  // forward: per-warp column sums
 constexpr int BAR_BYTES = 64;     // mbarriers: 2 slab stages, NBUF weights
 constexpr int SMEM_LIMIT = 232448;
 
-enum Prologue { NONE = 0, AFFINE = 1, AFFINE_RELU = 2 };
-
-// Byte offset of 16-byte chunk c (of 8) of row r in a 128-byte-swizzled
-// run of rows: the layout of sm90.cuh's tiles, one column block wide.
-__device__ __forceinline__ uint32_t swz(int r, int c) {
-  return static_cast<uint32_t>(r * ROW + (((c ^ r) & 7) << 4));
-}
-
 struct Slab {
   int rowstep;  // slab rows between two tap rows
   int rows;     // rows the slab holds: runs * run
   int runs;     // 1: one run from p0 - W - 1; 3: one per tap row
   int run;      // rows of a run, a multiple of BOXR
 };
-
-__host__ inline int round_up(int v, int to) { return (v + to - 1) / to * to; }
 
 __host__ inline Slab make_slab(int T, int W) {
   Slab s;
@@ -139,57 +139,6 @@ __device__ __forceinline__ uint32_t tap_mask(long long m, long long M,
   if (h > 0) bits |= cols;
   if (h + 1 < H.d) bits |= cols << 6;
   return bits;
-}
-
-// bn1's prologue for the 8 channels of one 16-byte chunk, in the order of
-// bn_gemm.cuh's Source::apply: (x - mu) * (inv * gamma) + beta, ReLU,
-// rounded to bf16. Channels past C take mu = scale = beta = 0, so a
-// zero-filled chunk stays 0.
-struct Affine {
-  float mu[8], scale[8], beta[8];
-
-  __device__ __forceinline__ void load(const float* mu_, const float* inv,
-                                       const float* gamma, const float* beta_,
-                                       int c, int C) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const bool ok = c + j < C;
-      mu[j] = ok ? mu_[c + j] : 0.f;
-      scale[j] = ok ? __fmul_rn(inv[c + j], gamma[c + j]) : 0.f;
-      beta[j] = ok ? beta_[c + j] : 0.f;
-    }
-  }
-
-  __device__ __forceinline__ uint4 apply(uint4 v, bool relu) const {
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float2 f = __bfloat1622float2(h[q]);
-      float t0 = __fadd_rn(__fmul_rn(__fsub_rn(f.x, mu[2 * q]),
-                                     scale[2 * q]), beta[2 * q]);
-      float t1 = __fadd_rn(__fmul_rn(__fsub_rn(f.y, mu[2 * q + 1]),
-                                     scale[2 * q + 1]), beta[2 * q + 1]);
-      if (relu) {
-        t0 = fmaxf(t0, 0.f);
-        t1 = fmaxf(t1, 0.f);
-      }
-      h[q] = __floats2bfloat162_rn(t0, t1);
-    }
-    return v;
-  }
-};
-
-// Applies the prologue in place to the `rows` rows of a slab, by nthreads
-// threads (a multiple of 8): thread t always takes chunk t % 8, whose
-// channels `af` holds.
-__device__ __forceinline__ void apply_prologue(uint32_t slab, int rows,
-                                               const Affine& af, bool relu,
-                                               int tid, int nthreads) {
-  const int c = tid & 7;
-  for (int r = tid >> 3; r < rows; r += nthreads >> 3) {
-    const uint32_t p = slab + swz(r, c);
-    sm90::sts128(p, af.apply(sm90::lds128(p), relu));
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -612,13 +561,8 @@ fcbn_bwd_dw_tc_kernel(const DwArgs a, const __grid_constant__ CUtensorMap xmap,
   Affine af;
   if (a.prologue != NONE)
     af.load(a.mu, a.inv, a.gamma, a.beta, c0 + 8 * (tid & 7), a.Cin);
-  float dsv[8], dssv[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int n = n0 + 8 * (tid & 7) + j;
-    dsv[j] = n < a.Cout ? a.ds[n] : 0.f;
-    dssv[j] = n < a.Cout ? a.dss[n] : 0.f;
-  }
+  DyTerms dyt;
+  dyt.load(a.ds, a.dss, n0 + 8 * (tid & 7), a.Cout);
 
   // Tile it's once-per-tile work, in place, after its data landed: the tap
   // masks (by the last warpgroup, one pixel each), bn1's prologue on the
@@ -639,23 +583,7 @@ fcbn_bwd_dw_tc_kernel(const DwArgs a, const __grid_constant__ CUtensorMap xmap,
       apply_prologue(st + 2 * TB, a.slab.rows, af, relu, tid, DW_THREADS);
     for (int r = tid >> 3; r < T; r += DW_THREADS / 8) {
       const uint32_t off = swz(r, tid & 7);
-      uint4 d = lds128(st + off);
-      const uint4 yv = lds128(st + TB + off);
-      __nv_bfloat162* dh = reinterpret_cast<__nv_bfloat162*>(&d);
-      const __nv_bfloat162* yh = reinterpret_cast<const __nv_bfloat162*>(&yv);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float2 fd = __bfloat1622float2(dh[j]);
-        const float2 fy = __bfloat1622float2(yh[j]);
-        const float v0 = __fadd_rn(
-            __fadd_rn(fd.x, dsv[2 * j]),
-            __fmul_rn(__fmul_rn(2.f, fy.x), dssv[2 * j]));
-        const float v1 = __fadd_rn(
-            __fadd_rn(fd.y, dsv[2 * j + 1]),
-            __fmul_rn(__fmul_rn(2.f, fy.y), dssv[2 * j + 1]));
-        dh[j] = __floats2bfloat162_rn(v0, v1);
-      }
-      sts128(st + off, d);
+      sts128(st + off, dyt.apply(lds128(st + off), lds128(st + TB + off)));
     }
   };
 

@@ -1,6 +1,6 @@
 // Pieces shared by the flash-attention kernels (flash_attention_fwd.cu,
-// flash_attention_bwd.cu): element conversions, the rounding points of the
-// TPU kernels, and the counter-based dropout hash.
+// flash_attention_bwd.cu): the FMA kernels' tiling, strides, and the
+// counter-based dropout hash.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -31,21 +31,6 @@ struct Dropout {
   uint32_t seed;
   int b_start, h_start, h_total;
 };
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-// x rounded to the storage type and back: the TPU kernels cast p, p_drop and
-// ds to the operands' dtype before feeding them to the matrix unit.
-__device__ __forceinline__ float round_as(float x, float) { return x; }
-__device__ __forceinline__ float round_as(float x, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16(x));
-}
 
 // The global batch*head coordinate of grid row (b, h) of a call with H
 // local heads, premultiplied by the hash's batch*head constant.

@@ -341,77 +341,9 @@ int launch_bwd_dw(const void* x, const float* mu, const float* inv,
 // bf16 on the tensor cores (conv3x3_tc.cuh)
 // ---------------------------------------------------------------------------
 
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point
-// query (so the library links nothing beyond the runtime).
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &found);
-#endif
-    if (found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// The tensor map of a row-major bf16 tensor of dims (innermost first) and
-// the row strides of the outer dims (bytes), read in boxes of `box`,
-// 128-byte-swizzled, out-of-bounds elements zero. Returns a CUDA error.
-int tensor_map(CUtensorMap* map, const void* base, int rank,
-               const cuuint64_t* dims, const cuuint64_t* strides,
-               const cuuint32_t* box) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
-      dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
-// (M, C) channels-last activations in boxes of 64 channels x `rows`.
-int rows_map(CUtensorMap* map, const void* base, long long M, int C,
-             int rows) {
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(C),
-                              static_cast<cuuint64_t>(M)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(C) * 2};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(rows)};
-  return tensor_map(map, base, 2, dims, strides, box);
-}
-
-int sm_count() {
-  int dev = 0, n = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  return n > 0 ? n : 1;
-}
-
-// Tiles a block of a persistent grid: one block an SM over `units`
-// independent column blocks, each walking a run of `tiles`; normalised so
-// that cdiv(tiles, cdiv(tiles, per)) == per.
-long long tc_per(long long tiles, long long units) {
-  const long long sms = sm_count();
-  long long s = units >= sms ? 1 : sms / units;
-  if (s > tiles) s = tiles;
-  if (s < 1) s = 1;
-  const long long per = cdiv(tiles, s);
-  return cdiv(tiles, cdiv(tiles, per));
-}
+using bntc::rows_map;
+using bntc::tc_per;
+using bntc::tensor_map;
 
 // The forward's instance for a shape: NB blocks of 64 output channels a
 // block (2 above 64), the nine weight tiles resident when Cin and Cout fit

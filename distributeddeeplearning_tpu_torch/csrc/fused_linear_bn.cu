@@ -40,6 +40,25 @@
 // - bf16: tensor cores by mma.sync.m16n8k16 with f32 accumulators, 8 warps
 //   of 64 x 32, two blocks an SM. f32: FMA on the CUDA cores (no TF32),
 //   8 x 8 outputs a thread.
+// - bf16 dw (flbn_bwd_dw_tc_kernel) runs instead on wgmma, as the 3x3 dw
+//   of conv3x3_tc.cuh with one tap and no halo. It is bound by its bytes
+//   wherever K or N is 64 (stage 1: 2 * 64 to 2 * 256 flops for each of its
+//   6 input bytes a pixel), so it reads each of x, dy and y once where it
+//   can: a persistent block (one an SM) walks a fixed chunk of M for a
+//   tile of up to 256 input x 256 output channels (64 wide where K or N is
+//   64, so no zeros are multiplied; at most 128 accumulator registers a
+//   thread), which covers all of K and N at stage 1 and 2's layers. Each
+//   pixel tile's x, dy and y arrive by TMA (one warp issues the 64-channel
+//   boxes, an mbarrier a stage, three stages where they fit, else two, so
+//   one or two tiles are in flight) into 128-byte-swizzled shared
+//   memory; bn's prologue is applied to x and dY formed over dy in place,
+//   once a tile, by all 256 threads (bn_tc.cuh, shared with the 3x3
+//   kernels). The contracted index is the pixel, the row of both tiles:
+//   a^T goes to the register A operand by ldmatrix.trans and dY is read
+//   MN-major through a descriptor. Two warpgroups split the block's tile
+//   along N or K, or, at 64 x 64, each pixel tile's steps; the next
+//   step's fragments load while a step's products run. The partial leaves
+//   through shared memory in whole rows.
 // - Reductions over M without atomics. The forward and dx kernels give
 //   each block a fixed run of row tiles; after each tile it sums its
 //   columns over each thread's rows in registers, then over its 16 thread
@@ -53,7 +72,8 @@
 //   one in the 2-norm, and with exact sums it is as far. dw cuts M into
 //   fixed chunks, each block writes its (N, K) f32 partial, and a second
 //   kernel sums them in order and rounds. The results repeat bit for bit
-//   from run to run on one card.
+//   from run to run on one card (the bf16 dw sizes its chunks by the
+//   card's SM count).
 // - M is any size (bounds checks, zero fill); K and N are multiples of 8,
 //   the operands 16-byte aligned (the wrapper checks).
 //
@@ -62,6 +82,7 @@
 // and they round as the plain PyTorch versions do.
 
 #include "bn_gemm.cuh"
+#include "bn_tc.cuh"
 
 namespace {
 
@@ -235,6 +256,366 @@ int launch_bwd_dw(const void* x, const float* mu, const float* inv,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 dw (#10) on the tensor cores
+// ---------------------------------------------------------------------------
+
+namespace dwtc {
+
+using bf16 = __nv_bfloat16;
+using bntc::ROW;
+using bntc::swz;
+
+constexpr int TC_THREADS = 256;  // two warpgroups
+constexpr int SMEM_LIMIT = 232448;
+constexpr int OUT_STRIDE = 68;   // floats a row of a staged 64 x 64 partial
+constexpr int OUT_BYTES = 64 * OUT_STRIDE * 4;
+
+// How the two warpgroups share a block's (kc x nc) output tile: each owns
+// KW x NW 64 x 64 blocks, side by side along N or K, or both own the whole
+// 64 x 64 tile and take half of each pixel tile's 16-pixel steps.
+enum Split { SPLIT_M = 0, SPLIT_N = 1, SPLIT_K = 2 };
+
+// Pixels (rows of M) a tile: two stages of x, dy and y for the block's
+// channels must fit in shared memory.
+__host__ __device__ constexpr int tile_rows(int nw) {
+  return nw == 2 ? 64 : 128;
+}
+
+struct DwArgs {
+  const float* mu;
+  const float* inv;
+  const float* gamma;
+  const float* beta;
+  const float* ds;
+  const float* dss;
+  float* work;  // (splits, N, K)
+  long long M;
+  int K, N;
+  int per;          // pixel tiles a block
+  int prologue;     // bntc::Prologue
+  int split;        // Split
+  int kc, nc;       // the block's input and output channels, 64 a block
+  int stage_bytes;  // x, dy and y of one tile
+  int stages;       // 2 or 3, as shared memory allows
+};
+
+// Block (blockIdx.x: chunk of M, blockIdx.y: kc input channels from k0,
+// blockIdx.z: nc output channels from n0) of the weight gradient: its f32
+// partial dw[n][k] = sum over its chunk's pixels of dY[m][n] a[m][k]. Each
+// tile's x, dy and y (64-channel column blocks of T rows) land by TMA in
+// a ring of two or three stages; bn's prologue is applied to x and dY =
+// dy + ds + 2 y dss formed over dy in place, once a tile. A warpgroup takes a^T
+// (channels x pixels) by ldmatrix.trans as the register A and reads dY
+// MN-major through a descriptor as B: both operands are contracted over
+// the pixel, their rows. xmap: x as (M, K), dymap and ymap: dy and y as
+// (M, N), boxes of 64 channels x T rows.
+template <int KW, int NW>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+flbn_bwd_dw_tc_kernel(const DwArgs a, const __grid_constant__ CUtensorMap xmap,
+                      const __grid_constant__ CUtensorMap dymap,
+                      const __grid_constant__ CUtensorMap ymap) {
+  using namespace sm90;
+  constexpr int T = tile_rows(NW);
+  constexpr uint32_t TB = T * ROW;  // one 64-channel column block of a tile
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sbar = base + a.stages * a.stage_bytes;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = tid >> 7, wq = warp & 3, t4 = lane & 3;
+  const int kcb = a.kc >> 6, ncb = a.nc >> 6;  // column blocks: x, dY
+  const int split = blockIdx.x;
+  const int k0 = blockIdx.y * a.kc, n0 = blockIdx.z * a.nc;
+  const long long tiles = (a.M + T - 1) / T;
+  const long long tb = static_cast<long long>(split) * a.per;
+  const long long te = tb + a.per < tiles ? tb + a.per : tiles;
+  const int ntiles = te > tb ? static_cast<int>(te - tb) : 0;
+  const bool relu = a.prologue == bntc::AFFINE_RELU;
+  // This warpgroup's first x and dY column blocks and its 16-pixel steps.
+  const int kb0 = a.split == SPLIT_K ? wg * KW : 0;
+  const int nb0 = a.split == SPLIT_N ? wg * NW : 0;
+  const int nsteps = a.split == SPLIT_M ? T / 32 : T / 16;
+  const int step0 = a.split == SPLIT_M ? wg * nsteps : 0;
+
+  // The block's it-th tile lives in stage it % stages; the k-th use of a
+  // stage's barrier has parity k % 2. Issued by warp 0, a box a lane.
+  auto load = [&](int it) {
+    const int s = it % a.stages;
+    const uint32_t st = base + s * a.stage_bytes, bar = sbar + 8 * s;
+    const int p0 = static_cast<int>((tb + it) * T);
+    if (lane == 0) mbar_expect_tx(bar, a.stage_bytes);
+    __syncwarp();
+    const uint32_t dst = st + lane * TB;
+    if (lane < kcb)
+      tma_load_2d(dst, &xmap, k0 + 64 * lane, p0, bar);
+    else if (lane < kcb + ncb)
+      tma_load_2d(dst, &dymap, n0 + 64 * (lane - kcb), p0, bar);
+    else if (lane < kcb + 2 * ncb)
+      tma_load_2d(dst, &ymap, n0 + 64 * (lane - kcb - ncb), p0, bar);
+  };
+
+  // Thread t transforms chunk t % 8 of x column block (t / 8) % kcb and of
+  // dY column block (t / 8) % ncb, whose constants it holds.
+  const int xj = (tid >> 3) % kcb, yj = (tid >> 3) % ncb;
+  bntc::Affine af;
+  if (a.prologue != bntc::NONE)
+    af.load(a.mu, a.inv, a.gamma, a.beta, k0 + 64 * xj + 8 * (tid & 7), a.K);
+  bntc::DyTerms dyt;
+  dyt.load(a.ds, a.dss, n0 + 64 * yj + 8 * (tid & 7), a.N);
+
+  // Tile it's once-per-tile work, in place, after its data landed: bn's
+  // prologue on x's rows in M, dY over dy (0 on rows past M, where dy and
+  // y arrive as 0 but ds does not vanish).
+  auto prepare = [&](int it) {
+    const int s = it % a.stages;
+    const uint32_t st = base + s * a.stage_bytes;
+    const uint32_t sdy = st + kcb * TB, sy = sdy + ncb * TB;
+    const long long left = a.M - (tb + it) * T;
+    const int rows = left < T ? static_cast<int>(left) : T;
+    mbar_wait(sbar + 8 * s, (it / a.stages) & 1);
+    if (a.prologue != bntc::NONE)  // column block xj by 256 / kcb threads
+      bntc::apply_prologue(st + xj * TB, rows, af, relu,
+                           (tid >> 3) / kcb * 8 + (tid & 7),
+                           TC_THREADS / kcb);
+    for (int r = (tid >> 3) / ncb; r < T; r += TC_THREADS / 8 / ncb) {
+      const uint32_t off = yj * TB + swz(r, tid & 7);
+      sts128(sdy + off, r < rows ? dyt.apply(lds128(sdy + off),
+                                             lds128(sy + off))
+                                 : make_uint4(0u, 0u, 0u, 0u));
+    }
+  };
+
+  float acc[KW][NW][32];
+#pragma unroll
+  for (int kb = 0; kb < KW; ++kb)
+#pragma unroll
+    for (int nb = 0; nb < NW; ++nb)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[kb][nb][i] = 0.f;
+
+  if (tid == 0) {
+    prefetch_tensormap(&xmap);
+    prefetch_tensormap(&dymap);
+    prefetch_tensormap(&ymap);
+    for (int i = 0; i < a.stages; ++i) mbar_init(sbar + 8 * i, 1);
+    fence_mbar_init();
+  }
+  __syncthreads();
+  if (warp == 0)
+    for (int it = 0; it < a.stages - 1 && it < ntiles; ++it) load(it);
+  if (ntiles > 0) prepare(0);
+  for (int it = 0; it < ntiles; ++it) {
+    const uint32_t st = base + (it % a.stages) * a.stage_bytes;
+    const uint32_t sdy = st + kcb * TB;
+    // Tile it is prepared and visible; every reader of tile it - 1's stage
+    // is done, so it takes tile it + stages - 1.
+    fence_async_shared();
+    __syncthreads();
+    if (warp == 0 && it + a.stages - 1 < ntiles) load(it + a.stages - 1);
+
+    // One software pipeline over the warpgroup's 16-pixel steps: step k +
+    // 1's fragments load while step k's products run, two register
+    // buffers taking turns, each pinned until its products are done.
+    uint32_t fa[2][KW][4];
+    auto prep = [&](int k, uint32_t (&f)[KW][4]) {
+      const int r = 16 * (step0 + k) + (lane & 7) + ((lane >> 4) << 3);
+#pragma unroll
+      for (int kb = 0; kb < KW; ++kb)
+        ldsm_x4_trans(st + (kb0 + kb) * TB + swz(r, 2 * wq + ((lane >> 3) & 1)),
+                      f[kb]);
+    };
+    auto pin = [&](uint32_t (&f)[KW][4]) {
+#pragma unroll
+      for (int kb = 0; kb < KW; ++kb) fence_regs(f[kb]);
+    };
+#pragma unroll
+    for (int kb = 0; kb < KW; ++kb)
+#pragma unroll
+      for (int nb = 0; nb < NW; ++nb) fence_regs(acc[kb][nb]);
+    prep(0, fa[0]);
+#pragma unroll
+    for (int k = 0; k < T / 16; ++k) {
+      if (k == nsteps) break;
+      pin(fa[k & 1]);
+      wgmma_fence();
+#pragma unroll
+      for (int kb = 0; kb < KW; ++kb)
+#pragma unroll
+        for (int nb = 0; nb < NW; ++nb)
+          mma_rs<1>(acc[kb][nb], fa[k & 1][kb][0], fa[k & 1][kb][1],
+                    fa[k & 1][kb][2], fa[k & 1][kb][3],
+                    desc_mn<T>(sdy, step0 + k, nb0 + nb), 1);
+      wgmma_commit();
+      wgmma_wait<1>();  // step k - 1 is done: its buffer may be refilled
+      pin(fa[(k + 1) & 1]);
+      if (k + 1 < nsteps) prep(k + 1, fa[(k + 1) & 1]);
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int kb = 0; kb < KW; ++kb)
+#pragma unroll
+      for (int nb = 0; nb < NW; ++nb) fence_regs(acc[kb][nb]);
+    pin(fa[0]);
+    pin(fa[1]);
+    if (it + 1 < ntiles) prepare(it + 1);
+  }
+
+  // The block's partial, work[split][n][k], a 64 x 64 block at a time: each
+  // warpgroup stages its block as rows of n in shared memory (the stages
+  // are free), and the block writes whole rows of k; under SPLIT_M the two
+  // warpgroups' halves are added, the first's first.
+  __syncthreads();
+  float* out = a.work + static_cast<long long>(split) * a.N * a.K;
+  const uint32_t stg = base + wg * OUT_BYTES;
+  const int slots = a.split == SPLIT_M ? 1 : 2;
+#pragma unroll
+  for (int kb = 0; kb < KW; ++kb)
+#pragma unroll
+    for (int nb = 0; nb < NW; ++nb) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int c = wq * 16 + (lane >> 2) + 8 * ((i >> 1) & 1);
+        const int n = 8 * (i >> 2) + 2 * t4 + (i & 1);
+        asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(
+                         stg + (n * OUT_STRIDE + c) * 4),
+                     "f"(acc[kb][nb][i])
+                     : "memory");
+      }
+      __syncthreads();
+      for (int e = tid; e < slots * 64 * 16; e += TC_THREADS) {
+        const int w = e >> 10, n = (e >> 4) & 63, c = (e & 15) * 4;
+        const float* row = reinterpret_cast<const float*>(
+            smem_raw + (base - raw) + w * OUT_BYTES) + n * OUT_STRIDE + c;
+        float4 v = *reinterpret_cast<const float4*>(row);
+        if (a.split == SPLIT_M) {
+          const float4 u = *reinterpret_cast<const float4*>(
+              row + OUT_BYTES / 4);
+          v.x = __fadd_rn(v.x, u.x);
+          v.y = __fadd_rn(v.y, u.y);
+          v.z = __fadd_rn(v.z, u.z);
+          v.w = __fadd_rn(v.w, u.w);
+        }
+        const int kk = k0 + 64 * (kb + (a.split == SPLIT_K ? w * KW : 0)) + c;
+        const int nn = n0 + 64 * (nb + (a.split == SPLIT_N ? w * NW : 0)) + n;
+        if (kk < a.K && nn < a.N)
+          *reinterpret_cast<float4*>(out + static_cast<long long>(nn) * a.K +
+                                     kk) = v;
+      }
+      __syncthreads();
+    }
+}
+
+// The tile of a shape: 64-wide where K or N is 64 (no zeros multiplied),
+// and each block as wide as a warpgroup's 128 accumulator registers allow,
+// so that each x and dY element is transformed once per block that needs
+// it (once at K, N <= 256, 128 as at stage 1 and 2's conv1 and conv3).
+struct DwPlan {
+  int kw, nw, split, T, kc, nc;
+};
+
+inline DwPlan dw_plan(int K, int N) {
+  DwPlan p;
+  if (K <= 64 && N <= 64) {
+    p = {1, 1, SPLIT_M, 0, 64, 64};
+  } else if (K <= 64) {
+    p = N <= 128 ? DwPlan{1, 1, SPLIT_N, 0, 64, 128}
+                 : DwPlan{1, 2, SPLIT_N, 0, 64, 256};
+  } else if (N <= 64) {
+    p = K <= 128 ? DwPlan{1, 1, SPLIT_K, 0, 128, 64}
+                 : DwPlan{2, 1, SPLIT_K, 0, 256, 64};
+  } else if (K <= 128) {
+    p = N <= 128 ? DwPlan{2, 1, SPLIT_N, 0, 128, 128}
+                 : DwPlan{2, 2, SPLIT_N, 0, 128, 256};
+  } else {
+    p = {2, 2, SPLIT_K, 0, 256, 128};
+  }
+  p.T = tile_rows(p.nw);
+  return p;
+}
+
+inline long long dw_tiles(long long M, const DwPlan& p) {
+  return (M + p.T - 1) / p.T;
+}
+
+inline long long dw_units(int K, int N, const DwPlan& p) {
+  return ((K + p.kc - 1) / p.kc) * static_cast<long long>((N + p.nc - 1) /
+                                                          p.nc);
+}
+
+// Chunks of M: one block an SM over the (K, N) tiles.
+inline int dw_splits_tc(long long M, int K, int N) {
+  const DwPlan p = dw_plan(K, N);
+  const long long tiles = dw_tiles(M, p);
+  if (tiles == 0) return 1;
+  return static_cast<int>(
+      cdiv(tiles, bntc::tc_per(tiles, dw_units(K, N, p))));
+}
+
+template <int KW, int NW>
+int launch_dw_inst(const DwArgs& a, const CUtensorMap (&maps)[3], int smem,
+                   dim3 grid, cudaStream_t s) {
+  auto kernel = flbn_bwd_dw_tc_kernel<KW, NW>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, TC_THREADS, smem, s>>>(a, maps[0], maps[1], maps[2]);
+  return cudaGetLastError();
+}
+
+}  // namespace dwtc
+
+int launch_bwd_dw_tc(const void* x, const float* mu, const float* inv,
+                     const float* gamma, const float* beta, const void* dy,
+                     const void* y, const float* ds, const float* dss,
+                     float* work, void* dw, long long M, int K, int N,
+                     bool relu, bool bn, int splits, cudaStream_t s) {
+  using namespace dwtc;
+  if (M > 0x7FFFFFFFLL) return cudaErrorInvalidValue;  // TMA row coordinate
+  const long long nk = static_cast<long long>(N) * K;
+  if (M == 0) return cudaMemsetAsync(dw, 0, nk * 2, s);
+  const DwPlan p = dw_plan(K, N);
+  DwArgs a;
+  a.mu = mu;
+  a.inv = inv;
+  a.gamma = gamma;
+  a.beta = beta;
+  a.ds = ds;
+  a.dss = dss;
+  a.work = work;
+  a.M = M;
+  a.K = K;
+  a.N = N;
+  a.per = static_cast<int>(cdiv(dw_tiles(M, p), splits));
+  a.prologue = !bn ? bntc::NONE : relu ? bntc::AFFINE_RELU : bntc::AFFINE;
+  a.split = p.split;
+  a.kc = p.kc;
+  a.nc = p.nc;
+  a.stage_bytes = p.T * ROW * (p.kc / 64 + 2 * p.nc / 64);
+  a.stages = 1024 + 3 * a.stage_bytes + 24 <= SMEM_LIMIT ? 3 : 2;
+  const int smem = 1024 + a.stages * a.stage_bytes + 8 * a.stages;
+  CUtensorMap maps[3];  // x, dy, y
+  int err = bntc::rows_map(&maps[0], x, M, K, p.T);
+  if (err == cudaSuccess) err = bntc::rows_map(&maps[1], dy, M, N, p.T);
+  if (err == cudaSuccess) err = bntc::rows_map(&maps[2], y, M, N, p.T);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(splits, static_cast<unsigned>(cdiv(K, p.kc)),
+                  static_cast<unsigned>(cdiv(N, p.nc)));
+  if (p.kw == 1)
+    err = p.nw == 1 ? launch_dw_inst<1, 1>(a, maps, smem, grid, s)
+                    : launch_dw_inst<1, 2>(a, maps, smem, grid, s);
+  else
+    err = p.nw == 1 ? launch_dw_inst<2, 1>(a, maps, smem, grid, s)
+                    : launch_dw_inst<2, 2>(a, maps, smem, grid, s);
+  if (err != cudaSuccess) return err;
+  long long blocks = cdiv(nk, THREADS);
+  if (blocks > 4096) blocks = 4096;
+  flbn_dw_finish_kernel<bf16><<<static_cast<int>(blocks), THREADS, 0, s>>>(
+      work, static_cast<bf16*>(dw), nk, splits);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Every entry point launches on
@@ -248,7 +629,8 @@ extern "C" int flbn_row_splits(long long M, int Q) { return row_splits(M, Q); }
 
 // Contracted chunks of flbn_bwd_dw: its (splits, N, K) f32 workspace.
 extern "C" int flbn_dw_splits(long long M, int K, int N, int dtype) {
-  return dw_splits(M, N, K, dtype == 0 ? F32Engine::BR : Bf16Engine::BR);
+  if (dtype == 0) return dw_splits(M, N, K, F32Engine::BR);
+  return dwtc::dw_splits_tc(M, K, N);
 }
 
 extern "C" int flbn_fwd(const void* x, const void* w, const void* mu,
@@ -316,9 +698,8 @@ extern "C" int flbn_bwd_dw(const void* x, const void* mu, const void* inv,
              ? launch_bwd_dw<F32Engine>(x, m, i, g, b, dy, y, d0, d1, part,
                                         dw, M, K, N, relu != 0, bn != 0,
                                         splits, s)
-             : launch_bwd_dw<Bf16Engine>(x, m, i, g, b, dy, y, d0, d1, part,
-                                         dw, M, K, N, relu != 0, bn != 0,
-                                         splits, s);
+             : launch_bwd_dw_tc(x, m, i, g, b, dy, y, d0, d1, part, dw, M,
+                                K, N, relu != 0, bn != 0, splits, s);
 }
 
 extern "C" const char* flbn_error_string(int code) {

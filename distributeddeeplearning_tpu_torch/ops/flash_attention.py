@@ -5,15 +5,16 @@ Counterpart of ``distributeddeeplearning_tpu/ops/flash_attention.py``. The
 Pallas kernels become hand-written Hopper kernels (see the notes at the top
 of each source for what bounds them and what their design does about that):
 
-- ``_fwd_kernel`` -> ``csrc/flash_attention_fwd.cu`` (o and the row lse;
-  f32 FMAs on the CUDA cores for both dtypes);
+- ``_fwd_kernel`` -> ``csrc/flash_attention_fwd.cu`` (o and the row lse);
 - ``_dq_kernel`` and ``_dkv_kernel`` -> ``csrc/flash_attention_bwd.cu``.
-  Both are bound by their S^2 * D products. In bf16 they run those on the
-  tensor cores (wgmma, one warpgroup per 64-row tile, ds and p_drop fed
-  from registers), stage bf16 tiles through a two-stage cp.async ring and
-  schedule the heaviest causal tiles first; every row of q, k, v and do
-  must start on 16 bytes. In f32 they stay f32 FMAs on the CUDA cores, so
-  the gradients keep f32 accuracy.
+
+All three are bound by their S^2 * D products at training lengths. In bf16
+they run those on the tensor cores (wgmma, one warpgroup per 64-row tile,
+p_drop and ds fed from registers), stage bf16 tiles through a cp.async
+ring and schedule the heaviest causal tiles first; every row of
+q, k, v and do must start on 16 bytes. In f32 (sampling, and the f32
+reference steps) they stay f32 FMAs on the CUDA cores, so the outputs and
+gradients keep f32 accuracy.
 
 Attention-probability dropout runs inside the kernels through the
 counter-based hash of ``ops/hash_dropout.py``: the backward kernels
@@ -274,9 +275,12 @@ def flash_attention_cuda(q, k, v, kv_mask, causal: bool,
     """Launch the forward kernel: (o, lse) as :func:`flash_attention_reference`.
 
     Takes exactly what the kernel takes and raises on anything else (see
-    :func:`_check`). Launches on the current stream without synchronising.
+    :func:`_check`; in bf16 also on a row of q, k or v off 16 bytes).
+    Launches on the current stream without synchronising.
     """
     global launches
+    if q.dtype == torch.bfloat16:
+        _check_rows_aligned(q=q, k=k, v=v)
     _check(q, k, v, kv_mask)
     drop = _dropout(dropout_rate, dropout_seed, q.shape[2], bh_offsets)
     b, s, h, d = q.shape
@@ -293,14 +297,14 @@ def flash_attention_cuda(q, k, v, kv_mask, causal: bool,
 
 def _check_rows_aligned(**tensors) -> None:
     """Raise unless every (batch, seq, head) row of each bf16 tensor starts
-    on 16 bytes: the tensor-core backward kernels copy rows into shared
-    memory with cp.async, 16 bytes a thread. Strides of size-1 dims are
-    never followed, so they are not checked."""
+    on 16 bytes: the tensor-core kernels copy rows into shared memory with
+    cp.async, 16 bytes a thread. Strides of size-1 dims are never followed,
+    so they are not checked."""
     for name, x in tensors.items():
         strides = [st for st, n in zip(x.stride()[:3], x.shape[:3]) if n > 1]
         if x.data_ptr() % 16 or any(st % 8 for st in strides):
             raise ValueError(
-                f"{name}: the bf16 backward kernels need every row on 16 "
+                f"{name}: the bf16 flash kernels need every row on 16 "
                 f"bytes (data_ptr % 16 == 0, batch/seq/head strides % 8 == "
                 f"0); got data_ptr % 16 = {x.data_ptr() % 16}, strides "
                 f"{tuple(x.stride())}")

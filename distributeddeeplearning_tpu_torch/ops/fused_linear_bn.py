@@ -13,7 +13,10 @@ and what the design does about it):
   columns' sum(y) and sum(y^2) over y as stored;
 - ``_bwd_dx_kernel`` -> :func:`linear_bn_bwd_dx`: dY = dy + ds + 2 y dss,
   da = dY @ w, and with ``bn`` dx, dbeta and dgamma through the prologue;
-- ``_bwd_dw_kernel`` -> :func:`linear_bn_bwd_dw`: dw = dY^T @ a.
+- ``_bwd_dw_kernel`` -> :func:`linear_bn_bwd_dw`: dw = dY^T @ a. In bf16
+  it runs on the tensor cores (wgmma, TMA copies into swizzled shared
+  memory, persistent blocks over fixed chunks of M); #8, #9 and every f32
+  instance run on the mma.sync / FMA tile product of ``csrc/bn_gemm.cuh``.
 
 Layouts: x is (M, K) and y (M, N), row-major: the (N*H*W, C) view of a
 channels_last activation. The weight is the port's (N, K, 1, 1) convolution
@@ -235,7 +238,7 @@ def linear_bn_bwd_dx_cuda(dy, y, ds, dss, w, x, mu, inv, gamma, beta, *,
 
 def dw_splits(m: int, k: int, n: int, dtype: torch.dtype) -> int:
     """The number of chunks of M that kernel #10 sums separately (and then
-    in order) at this shape."""
+    in order) at this shape; in bf16 it follows the card's SM count."""
     return _fn("flbn_dw_splits", (_L, _I, _I, _I))(m, k, n, _DTYPES[dtype])
 
 

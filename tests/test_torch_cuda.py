@@ -273,6 +273,47 @@ def test_bf16_backward_takes_aligned_views_refuses_misaligned(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_fwd_repeats_bitwise(cuda_device, d):
+    """The bf16 forward sums each output element in one fixed order,
+    without atomics: two runs on the same inputs give the same bits, with
+    dropout, a ragged row and many key tiles, causal and full."""
+    q, k, v, _ = _inputs(cuda_device, torch.bfloat16, 2, 1031, 3, d, d + 3)
+    mask = _mask(1031, (1031, 700), cuda_device)
+    for causal in (True, False):
+        runs = [tfa.flash_attention_fwd(q, k, v, mask, causal=causal,
+                                        dropout_rate=0.1, dropout_seed=9)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_bf16_forward_takes_aligned_views_refuses_misaligned(cuda_device):
+    """The bf16 forward copies 16-byte pieces of rows: head-split views of
+    a fused projection are read through their strides, and a view 2 bytes
+    off a 16-byte boundary raises before any launch."""
+    rng = np.random.default_rng(3)
+    qkv = torch.from_numpy(rng.standard_normal((2, 96, 3, 4, 64)).astype(
+        np.float32)).to(cuda_device, torch.bfloat16)
+    q, k, v = qkv.unbind(dim=2)
+    assert not q.is_contiguous()
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=True)
+    ref_o, ref_lse = tfa.flash_attention_reference(q, k, v, None, True)
+    _rows_close(o, ref_o, 2 ** -6, 1e-6)
+    torch.testing.assert_close(lse, ref_lse, **F32)
+
+    off = torch.zeros(q.numel() + 1, dtype=torch.bfloat16,
+                      device=cuda_device)[1:].view(q.shape)
+    off.copy_(q)
+    before = tfa.launches
+    with pytest.raises(ValueError, match="16 bytes"):
+        tfa.flash_attention_fwd(off, k, v, causal=True)
+    assert tfa.launches == before
+
+
+@pytest.mark.cuda
 def test_training_step_on_card_matches_cpu(cuda_device, monkeypatch):
     """One forward and backward of a GPT at a kernel head dim (64), with
     attention dropout 0.1, through the three kernels on the card against
@@ -508,12 +549,21 @@ def _flbn_inputs(device, dtype, m, k, n, seed):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("variant", list(FLBN_VARIANTS))
 @pytest.mark.parametrize("m,k,n", [(4099, 64, 256), (200003, 256, 64),
-                                   (129, 24, 40), (1000, 1024, 2048)])
+                                   (129, 24, 40), (1000, 1024, 2048),
+                                   (3001, 64, 64), (2053, 64, 128),
+                                   (5003, 128, 64), (1031, 128, 128),
+                                   (777, 128, 256), (37, 64, 128),
+                                   (2000, 384, 320)])
 def test_linear_bn_kernels_match_plain(cuda_device, dtype, variant, m, k,
                                        n):
     """#8-#10 against their plain versions at ragged M (no multiple of a
     tile or a split), K and N below, at and above a tile, and a contracted
-    length that is no multiple of a step."""
+    length that is no multiple of a step. For the bf16 tensor-core dw's
+    tiles (dw_plan): 64 x 64 (K = N = 64, each pixel tile's steps split
+    between the warpgroups), 64 x 128, 64 x 256, 128 x 64, 256 x 64,
+    128 x 128, 128 x 256 and 256 x 128 (K above 128: a second K tile
+    wholly past K at K = 384, and N = 320 not a multiple of the tile), and
+    M = 37, shorter than one tile and so than one chunk."""
     bn, relu = FLBN_VARIANTS[variant]
     x, w, vecs, dy, y, ds, dss = _flbn_inputs(cuda_device, dtype, m, k, n,
                                               m + k + n)
@@ -567,7 +617,9 @@ def test_linear_bn_kernels_match_plain(cuda_device, dtype, variant, m, k,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_linear_bn_reductions_repeat_bitwise(cuda_device, dtype):
     """The sums of #8 and #9 and the whole of #10 reduce over M without
-    atomics in a fixed order: two runs agree bit for bit."""
+    atomics in a fixed order: two runs agree bit for bit. #10 also at
+    stage 1's conv3 widths (64 -> 256) and at 64 -> 64, where the bf16
+    dw's warpgroups split each pixel tile and add their halves."""
     x, w, vecs, dy, y, ds, dss = _flbn_inputs(cuda_device, dtype, 300007,
                                               128, 512, 5)
     runs = []
@@ -580,6 +632,12 @@ def test_linear_bn_reductions_repeat_bitwise(cuda_device, dtype):
         runs.append((s, ss, db, dg, dw))
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+    for m, k, n in ((200003, 64, 256), (100003, 64, 64)):
+        x, _, vecs, dy, y, ds, dss = _flbn_inputs(cuda_device, dtype, m, k,
+                                                  n, 6)
+        dws = [tflb.linear_bn_bwd_dw(x, *vecs, dy, y, ds, dss, relu=True,
+                                     bn=True) for _ in range(2)]
+        assert torch.equal(*dws)
 
 
 @pytest.mark.cuda

@@ -119,13 +119,13 @@ def test_kernel_wrapper_rejects_what_it_cannot_take(change, exc):
     q, k, v = (torch.zeros((1, 8, 2, 64)) for _ in range(3))
     q, k, v = change(q), change(k), change(v)
     mask = torch.ones((1, 8), dtype=torch.int32)
-    with pytest.raises(exc):
-        tfa.flash_attention_cuda(q, k, v, mask, causal=True)
-    # The backward wrappers refuse the same. A bf16 row off 16 bytes is
-    # refused before the device is looked at: the forward kernel could take
-    # it, the backward's 16-byte cp.async copies cannot.
-    lse = torch.zeros((1, 2, 8))
+    # A bf16 row off 16 bytes is refused before the device is looked at:
+    # every bf16 kernel copies rows with 16-byte cp.async copies.
     match = "16 bytes" if q.dtype == torch.bfloat16 else None
+    with pytest.raises(exc, match=match):
+        tfa.flash_attention_cuda(q, k, v, mask, causal=True)
+    # The backward wrappers refuse the same.
+    lse = torch.zeros((1, 2, 8))
     for fn in (tfa.flash_attention_dq_cuda, tfa.flash_attention_dkv_cuda):
         with pytest.raises(exc, match=match):
             fn(q, k, v, mask, lse, q, lse, causal=True)
