@@ -9,8 +9,8 @@ Run from the root of a checkout. Phases:
 2. build every kernel of the port from ``distributeddeeplearning_tpu_torch/
    csrc`` (one ``nvcc`` per source, all started together), timed, with
    the registers and spills from ptxas of the tensor-core kernels (the
-   flash forward's and backward's, the bf16 1x1 dw's and 3x3 forward's
-   and dw's);
+   flash forward's and backward's, the bf16 1x1 forward's, dx's and dw's
+   and 3x3 forward's and dw's);
 3. the flash forward against its plain PyTorch version on the card over a
    grid of shapes, with its device time (CUDA-graph replay, no host launch
    work), its eager per-call time, the plain version's and the one-call
@@ -58,7 +58,10 @@ Run from the root of a checkout. Phases:
    1x1 convolutions at batch 512 and one with the prologue but no ReLU, in
    bf16 and f32, with device times, bounds, the plain versions' times and
    ``torch.matmul`` of the bare product as the library yardstick; the sums
-   of #8 and #9 and the whole of #10 run twice and must repeat bit for bit;
+   of #8 and #9 and the whole of #10 run twice and must repeat bit for bit,
+   each dw check must fail a dw that lacks one of #10's chunks of M, and
+   each check of #8's and #9's sums must fail sums that lack one block's
+   run of pixels;
 14. the ``--fused-block`` training path: ``python -m
    distributeddeeplearning_tpu_torch.train --model resnet50 --batch-size
    512 --synthetic --fused-block`` for a few steps; each matmul kernel must
@@ -95,8 +98,8 @@ kernels' device times (#1-#3 at two shapes, and SDPA's forward beside
 #1), and one bf16 step of ResNet-50 ``--fused-block --fused-conv3`` at
 batch 512 (wall, busy, the conv_bn and linear_bn classes, images/s, peak
 memory) with the device times of #11-#13 at the four stride-1 3x3 shapes
-(bf16 and f32), of #8-#10 at stage 1's conv3 and of #10 over one step's
-36 layers; each checkout and each of the two in a process of its own, in
+(bf16 and f32), of #8-#10 at stage 1's conv3 and over one step's 36
+layers; each checkout and each of the two in a process of its own, in
 turns (CHECKOUT, OTHER, OTHER, CHECKOUT), for a before/after comparison on
 one card.
 """
@@ -650,6 +653,7 @@ FLASH_KERNELS = ("flash_fwd_kernel", "flash_dq_kernel", "flash_dkv_kernel",
                  "flash_fwd_tc_kernel", "flash_dq_tc_kernel",
                  "flash_dkv_tc_kernel")
 FLBN_KERNELS = ("flbn_fwd_kernel", "flbn_bwd_dx_kernel", "flbn_bwd_dw_kernel",
+                "flbn_fwd_tc_kernel", "flbn_bwd_dx_tc_kernel",
                 "flbn_bwd_dw_tc_kernel", "flbn_column_finish_kernel",
                 "flbn_dw_finish_kernel")
 FCBN_KERNELS = ("fcbn_fwd_kernel", "fcbn_bwd_dx_kernel", "fcbn_bwd_dw_kernel",
@@ -1174,8 +1178,8 @@ def conv_kernel_ms() -> dict:
     """Device times of #11-#13 at the four stride-1 3x3 shapes of ResNet-50
     at batch 512 (prologue and ReLU on) and of #8-#10 at stage 1's conv3,
     in bf16 and f32, the 3x3 kernels' bf16 times summed over one step's 13
-    layers (``step_*``), and #10's bf16 time summed over the 36 1x1
-    layers (``step_linear_dw_bfloat16``)."""
+    layers (``step_*``), and #8's, #9's and #10's bf16 times summed over
+    the 36 1x1 layers (``step_linear_{fwd,dx,dw}_bfloat16``)."""
     import torch
 
     from distributeddeeplearning_tpu_torch.ops import fused_conv_bn as fcbn
@@ -1226,17 +1230,24 @@ def conv_kernel_ms() -> dict:
         out[f"step_{kind}_bfloat16"] = sum(
             out[f"{kind}_bfloat16_{h}x{w}_c{c}"] for _, h, w, c in layers)
     linear = resnet50_linear_layers()
-    dw_ms = {}
+    lin_ms = {"fwd": {}, "dx": {}, "dw": {}}
     for m, k, n, bn, relu in sorted(set(linear)):
         x, dy, y = (rand(m, c).bfloat16() for c in (k, n, n))
+        wl = rand(n, k, scale=k ** -0.5).bfloat16()
         vecs = (rand(k, scale=0.3), rand(k).abs() + 0.5, rand(k).abs() + 0.5,
                 rand(k, scale=0.3)) if bn else (None,) * 4
         ds, dss = rand(n, scale=0.1), rand(n, scale=0.1)
-        dw_ms[m, k, n, bn, relu] = device_ms(lambda: flbn.linear_bn_bwd_dw(
+        v = (m, k, n, bn, relu)
+        lin_ms["fwd"][v] = device_ms(lambda: flbn.linear_bn_fwd(
+            x, *vecs, wl, relu=relu, bn=bn))
+        lin_ms["dx"][v] = device_ms(lambda: flbn.linear_bn_bwd_dx(
+            dy, y, ds, dss, wl, x, *vecs, relu=relu, bn=bn))
+        lin_ms["dw"][v] = device_ms(lambda: flbn.linear_bn_bwd_dw(
             x, *vecs, dy, y, ds, dss, relu=relu, bn=bn))
         del x, dy, y
         torch.cuda.empty_cache()
-    out["step_linear_dw_bfloat16"] = sum(dw_ms[v] for v in linear)
+    for kind, ms in lin_ms.items():
+        out[f"step_linear_{kind}_bfloat16"] = sum(ms[v] for v in linear)
     return out
 
 
@@ -1716,14 +1727,30 @@ def linear_bn_case(flbn, m, k, n, bn, relu, dtype, seed) -> list[dict]:
     repeat["linear_bn_fwd"] = torch.equal(s, s2) and torch.equal(ss, ss2)
     ref, rs, rss = flbn.linear_bn_fwd_reference(x, *vecs, w, **mode)
     of, rf = out.float(), ref.float()
-    errs["linear_bn_fwd"] = [
-        prod_share(out, ref),
-        col_share(s, rs, FLBN_SUM_TOL * rf.abs().sum(dim=0)
-                  + (of - rf).abs().sum(dim=0) + 1e-30),
-        col_share(ss, rss, FLBN_SUM_TOL * (rf * rf).sum(dim=0)
-                  + (of * of - rf * rf).abs().sum(dim=0) + 1e-30)]
+    sum_limits = (FLBN_SUM_TOL * rf.abs().sum(dim=0)
+                  + (of - rf).abs().sum(dim=0) + 1e-30,
+                  FLBN_SUM_TOL * (rf * rf).sum(dim=0)
+                  + (of * of - rf * rf).abs().sum(dim=0) + 1e-30)
+    errs["linear_bn_fwd"] = [prod_share(out, ref),
+                             col_share(s, rs, sum_limits[0]),
+                             col_share(ss, rss, sum_limits[1])]
+
+    def middle_run(dx):
+        """The rows of the middle block's run of #8 (dx False) or #9."""
+        run = flbn.run_rows(m, k, n, tdt, dx=dx, bn=bn)
+        r0 = (-(-m // run) // 2) * run
+        return slice(r0, r0 + run)
+
+    # The limits must see sums that lack one block's run of pixels: the
+    # middle block's, taken out of the kernel's own sums.
+    gone = of[middle_run(False)].double()
+    lost_run = {"linear_bn_fwd": min(
+        col_share((s.double() - gone.sum(dim=0)).float(), rs,
+                  sum_limits[0])[1],
+        col_share((ss.double() - (gone * gone).sum(dim=0)).float(), rss,
+                  sum_limits[1])[1])}
     finite = bool(torch.isfinite(of).all())
-    del out, ref, of, rf, s2, ss2
+    del out, ref, of, rf, s2, ss2, gone, sum_limits
 
     dx, db, dg = flbn.linear_bn_bwd_dx(dy, y, ds, dss, w, x, *vecs, **mode)
     again = flbn.linear_bn_bwd_dx(dy, y, ds, dss, w, x, *vecs, **mode)
@@ -1738,11 +1765,17 @@ def linear_bn_case(flbn, m, k, n, bn, relu, dtype, seed) -> list[dict]:
         xh = (x.float() - mu) * inv
         da = dyt @ w.float()
         dz = torch.where(xh * gamma + beta > 0, da, 0.0) if relu else da
-        errs["linear_bn_bwd_dx"] += [
-            col_share(db, rdb, FLBN_SUM_TOL * dz.abs().sum(dim=0) + 1e-30),
-            col_share(dg, rdg, FLBN_SUM_TOL * (dz * xh).abs().sum(dim=0)
-                      + 1e-30)]
-        del xh, da, dz
+        limits = (FLBN_SUM_TOL * dz.abs().sum(dim=0) + 1e-30,
+                  FLBN_SUM_TOL * (dz * xh).abs().sum(dim=0) + 1e-30)
+        errs["linear_bn_bwd_dx"] += [col_share(db, rdb, limits[0]),
+                                     col_share(dg, rdg, limits[1])]
+        rows = middle_run(True)
+        lost_run["linear_bn_bwd_dx"] = min(
+            col_share((db.double() - dz[rows].double().sum(dim=0)).float(),
+                      rdb, limits[0])[1],
+            col_share((dg.double() - (dz[rows].double() * xh[rows])
+                       .sum(dim=0)).float(), rdg, limits[1])[1])
+        del xh, da, dz, limits
     finite = finite and bool(torch.isfinite(dx.float()).all())
     del dx, again, rdx
 
@@ -1783,7 +1816,8 @@ def linear_bn_case(flbn, m, k, n, bn, relu, dtype, seed) -> list[dict]:
     for name, (kernel, plain, library) in runs.items():
         share = max(e[1] for e in errs[name])
         ok_repeat = repeat[name] is not False
-        sees_drop = name != "linear_bn_bwd_dw" or dropped > 1.0
+        sees_drop = (name != "linear_bn_bwd_dw" or dropped > 1.0) and \
+            lost_run.get(name, 2.0) > 1.0
         bound, by = linear_bn_bound(name, m, k, n, bn, dtype)
         rows.append({
             "kernel": name, "m": m, "k": k, "n": n, "bn": bn, "relu": relu,
@@ -1791,6 +1825,8 @@ def linear_bn_case(flbn, m, k, n, bn, relu, dtype, seed) -> list[dict]:
             "err_over_tol": share, "repeats": repeat[name],
             **({"dropped_chunk_over_tol": dropped}
                if name == "linear_bn_bwd_dw" else {}),
+            **({"lost_run_over_tol": lost_run[name]}
+               if name in lost_run else {}),
             "ok": finite and share <= 1.0 and ok_repeat and sees_drop,
             "ms": device_ms(kernel), "plain_ms": device_ms(plain),
             "library_ms": device_ms(library), "bound_ms": bound,
@@ -1824,7 +1860,8 @@ def phase_linear_bn_grid(flbn, failures) -> dict:
                 if not r["ok"]:
                     failures.append(f"{r['kernel']} disagrees with its plain "
                                     f"version or does not repeat, or its "
-                                    f"limit passes a lost chunk: {r}")
+                                    f"limit passes a lost chunk or run: "
+                                    f"{r}")
             torch.cuda.empty_cache()
     step = {}
     for name in ("linear_bn_fwd", "linear_bn_bwd_dx", "linear_bn_bwd_dw"):

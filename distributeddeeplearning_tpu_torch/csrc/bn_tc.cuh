@@ -1,8 +1,9 @@
 // Pieces shared by the port's tensor-core BatchNorm products for Hopper
 // (sm_90a): the bf16 3x3 forward and dw of conv3x3_tc.cuh (#11, #13) and
-// the bf16 1x1 dw of fused_linear_bn.cu (#10). On the device: the layout
-// of a 64-channel row of a TMA box, bn's prologue and dY = dy + ds + 2 y
-// dss for the 8 channels of one 16-byte chunk, in place in shared memory.
+// the bf16 1x1 forward, dx and dw of fused_linear_bn.cu (#8-#10). On the
+// device: the layout of a 64-channel row of a TMA box, bn's prologue and
+// dY = dy + ds + 2 y dss for the 8 channels of one 16-byte chunk, in place
+// in shared memory.
 // On the host: the TMA tensor maps of row-major (M, C) activations and the
 // split of a persistent grid over the card's SMs.
 
@@ -30,23 +31,44 @@ __device__ __forceinline__ uint32_t swz(int r, int c) {
 
 __host__ inline int round_up(int v, int to) { return (v + to - 1) / to * to; }
 
+// The 8 floats of p[c .. c + 7] by two 16-byte loads (c a multiple of 8,
+// p 16-byte aligned), or zeros where c is past C (a multiple of 8, so a
+// chunk is in or out whole).
+__device__ __forceinline__ void load8(const float* p, int c, int C,
+                                      float (&v)[8]) {
+  float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
+  if (c < C) {
+    lo = __ldg(reinterpret_cast<const float4*>(p + c));
+    hi = __ldg(reinterpret_cast<const float4*>(p + c + 4));
+  }
+  v[0] = lo.x;
+  v[1] = lo.y;
+  v[2] = lo.z;
+  v[3] = lo.w;
+  v[4] = hi.x;
+  v[5] = hi.y;
+  v[6] = hi.z;
+  v[7] = hi.w;
+}
+
 // bn's prologue for the 8 channels of one 16-byte chunk, in the order of
 // bn_gemm.cuh's Source::apply: (x - mu) * (inv * gamma) + beta, ReLU,
 // rounded to bf16. Channels past C take mu = scale = beta = 0, so a
-// zero-filled chunk stays 0.
+// zero-filled chunk stays 0. c and C are multiples of 8, the vectors
+// 16-byte aligned (the wrappers check).
 struct Affine {
   float mu[8], scale[8], beta[8];
 
   __device__ __forceinline__ void load(const float* mu_, const float* inv,
                                        const float* gamma, const float* beta_,
                                        int c, int C) {
+    float g[8];
+    load8(mu_, c, C, mu);
+    load8(inv, c, C, scale);
+    load8(gamma, c, C, g);
+    load8(beta_, c, C, beta);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const bool ok = c + j < C;
-      mu[j] = ok ? mu_[c + j] : 0.f;
-      scale[j] = ok ? __fmul_rn(inv[c + j], gamma[c + j]) : 0.f;
-      beta[j] = ok ? beta_[c + j] : 0.f;
-    }
+    for (int j = 0; j < 8; ++j) scale[j] = __fmul_rn(scale[j], g[j]);
   }
 
   __device__ __forceinline__ uint4 apply(uint4 v, bool relu) const {
@@ -83,17 +105,15 @@ __device__ __forceinline__ void apply_prologue(uint32_t slab, int rows,
 
 // dY = dy + ds + 2 y dss for the 8 output channels of one 16-byte chunk,
 // in the order of bn_gemm.cuh's Source::apply (DY), rounded to bf16.
-// Channels past N take ds = dss = 0, so a zero-filled chunk stays 0.
+// Channels past N take ds = dss = 0, so a zero-filled chunk stays 0 (n and
+// N multiples of 8, as Affine's).
 struct DyTerms {
   float ds[8], dss[8];
 
   __device__ __forceinline__ void load(const float* ds_, const float* dss_,
                                        int n, int N) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      ds[j] = n + j < N ? ds_[n + j] : 0.f;
-      dss[j] = n + j < N ? dss_[n + j] : 0.f;
-    }
+    load8(ds_, n, N, ds);
+    load8(dss_, n, N, dss);
   }
 
   __device__ __forceinline__ uint4 apply(uint4 d, const uint4& yv) const {
@@ -113,6 +133,23 @@ struct DyTerms {
     return d;
   }
 };
+
+// dY = dy + ds + 2 y dss in place of dy over the `rows` rows of a
+// 64-channel run (y's run at sy), as apply_prologue shares it out; rows at
+// or past `valid` are set to 0 (dy and y arrive as 0 there, ds does not
+// vanish).
+__device__ __forceinline__ void apply_dy(uint32_t sdy, uint32_t sy, int rows,
+                                         const DyTerms& dyt, int tid,
+                                         int nthreads,
+                                         int valid = 0x7FFFFFFF) {
+  const int c = tid & 7;
+  for (int r = tid >> 3; r < rows; r += nthreads >> 3) {
+    const uint32_t off = swz(r, c);
+    sm90::sts128(sdy + off, r < valid ? dyt.apply(sm90::lds128(sdy + off),
+                                                  sm90::lds128(sy + off))
+                                      : make_uint4(0u, 0u, 0u, 0u));
+  }
+}
 
 // ---------------------------------------------------------------------------
 // Host

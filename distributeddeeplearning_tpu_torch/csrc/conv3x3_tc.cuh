@@ -581,10 +581,7 @@ fcbn_bwd_dw_tc_kernel(const DwArgs a, const __grid_constant__ CUtensorMap xmap,
     mbar_wait(sbar + 8 * s, (it >> 1) & 1);
     if (a.prologue != NONE)
       apply_prologue(st + 2 * TB, a.slab.rows, af, relu, tid, DW_THREADS);
-    for (int r = tid >> 3; r < T; r += DW_THREADS / 8) {
-      const uint32_t off = swz(r, tid & 7);
-      sts128(st + off, dyt.apply(lds128(st + off), lds128(st + TB + off)));
-    }
+    bntc::apply_dy(st, st + TB, T, dyt, tid, DW_THREADS);
   };
 
   float acc[3][32];

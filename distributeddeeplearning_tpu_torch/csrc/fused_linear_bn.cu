@@ -27,20 +27,42 @@
 // design is the simple one that is right, with the BatchNorm work riding
 // the tiles the product loads anyway:
 //
-// - One generic tile product: a 128 x 128 output tile of 256 threads over
-//   a contracted axis cut in BR-deep steps. Each operand tile is loaded
-//   from a row-major source with 16-byte loads, either along its rows
-//   (x, w in the forward; dy in dx) or across them (w in dx; dy and x in
-//   dw, whose contracted axis is M), transformed elementwise on the way
-//   (the BatchNorm prologue, or dY), rounded to the storage type and
-//   stored in shared memory. The next step's loads are issued before the
-//   current step's products.
-//   The tile product and the three kernels' bodies live in bn_gemm.cuh,
-//   shared with the 3x3 kernels of fused_conv_bn.cu.
-// - bf16: tensor cores by mma.sync.m16n8k16 with f32 accumulators, 8 warps
-//   of 64 x 32, two blocks an SM. f32: FMA on the CUDA cores (no TF32),
-//   8 x 8 outputs a thread.
-// - bf16 dw (flbn_bwd_dw_tc_kernel) runs instead on wgmma, as the 3x3 dw
+// - f32: one generic tile product on the CUDA cores (no TF32): a 128 x
+//   128 output tile of 256 threads, 8 x 8 outputs a thread, over a
+//   contracted axis cut in BR-deep steps. Each operand tile is loaded from
+//   a row-major source with 16-byte loads, either along its rows (x, w in
+//   the forward; dy in dx) or across them (w in dx; dy and x in dw, whose
+//   contracted axis is M), transformed elementwise on the way (the
+//   BatchNorm prologue, or dY) and stored in shared memory. The tile
+//   product and the three kernels' bodies live in bn_gemm.cuh, shared with
+//   the 3x3 kernels of fused_conv_bn.cu (whose bf16 dx still runs its
+//   mma.sync engine).
+// - bf16 forward and dx (flbn_fwd_tc_kernel, flbn_bwd_dx_tc_kernel, one
+//   body, rows_body): out = A . B, A the (M, R) rows transformed (bn's
+//   prologue over x, or dY over dy), B the weight read K-major (forward)
+//   or MN-major (dx, whose contracted index is w's row). At stage 1 they
+//   are bound by their bytes (2 * 64 flops for each 2-byte element of a
+//   64-channel side), at stage 4 by the tensor cores. A persistent block
+//   (one an SM, bntc::tc_per) walks a fixed run of 128-row tiles for 64,
+//   128 or 256 output channels: 64 wide where the output is 64 (no zeros
+//   multiplied), all of the output up to 256 (so at stage 1 x or dy and
+//   y are read once and transformed once), 128 in dx with bn (its x tiles
+//   take shared memory). One thread of a producer warpgroup (which gives
+//   its registers to the others by setmaxnreg) issues every TMA copy into
+//   a ring of up to 8 stages of 64-channel chunks (the A chunk, dx's y
+//   chunk and the weight chunk, unless the block's weight slice fits in 64
+//   KB and stays resident), on mbarriers that the consumers release. Two
+//   consumer warpgroups own 64 rows each: each transforms its own rows of
+//   a chunk in place, once (rows past M set to 0: prologue(0) and ds are
+//   not), and runs one wgmma as wide as the block's output (m64n64,
+//   n128 or n256, so A is read once) from shared memory while the next
+//   chunk lands. The tile leaves 64 columns at a time: rounded to bf16
+//   into one of two swizzled staging tiles and out by a TMA store, which
+//   clips rows past M and columns past the output. dx with bn reads x's
+//   tile of its output columns (copied by TMA during the products) and
+//   the per-channel constants from shared memory for the mask, the scale
+//   and the sums.
+// - bf16 dw (flbn_bwd_dw_tc_kernel) runs on wgmma too, as the 3x3 dw
 //   of conv3x3_tc.cuh with one tap and no halo. It is bound by its bytes
 //   wherever K or N is 64 (stage 1: 2 * 64 to 2 * 256 flops for each of its
 //   6 input bytes a pixel), so it reads each of x, dy and y once where it
@@ -60,10 +82,13 @@
 //   step's fragments load while a step's products run. The partial leaves
 //   through shared memory in whole rows.
 // - Reductions over M without atomics. The forward and dx kernels give
-//   each block a fixed run of row tiles; after each tile it sums its
-//   columns over each thread's rows in registers, then over its 16 thread
-//   row groups in shared memory in a fixed order, into one running total a
-//   column; it writes a (splits, C) partial that a second kernel sums in a
+//   each block a fixed run of row tiles (flbn_run_rows). In f32, after each
+//   tile it sums its columns over each thread's rows in registers, then
+//   over its 16 thread row groups in shared memory in a fixed order, into
+//   one running total a column; in bf16 each warp sums its 16 rows by a
+//   fixed reduce-scatter of shuffles and keeps its running totals in
+//   registers, and the 8 warps' are added in order once, at the end. Each
+//   block writes a (splits, C) partial that a second kernel sums in a
 //   fixed order. These column sums (sum(y), sum(y^2), dbeta, dgamma) run in
 //   double and round to f32 once: each term (an f32, or the product of
 //   two) is exact in double, so the sums are about as good as f32 can hold.
@@ -177,6 +202,7 @@ int launch_fwd(const void* x, const void* w, const float* mu,
                void* y, double* part, float* sum, float* sumsq, long long M,
                int K, int N, bool relu, bool bn, int splits, cudaStream_t s) {
   using T = typename E::T;
+  if (M == 0) return column_finish(part, sum, sumsq, N, 0, s);
   const dim3 grid(cdiv(N, TILE), splits);
   const T* xp = static_cast<const T*>(x);
   const T* wp = static_cast<const T*>(w);
@@ -203,6 +229,8 @@ int launch_bwd_dx(const void* dy, const void* y, const float* ds,
                   float* dgamma, long long M, int K, int N, bool relu,
                   bool bn, int splits, cudaStream_t s) {
   using T = typename E::T;
+  if (M == 0)
+    return bn ? column_finish(part, dbeta, dgamma, K, 0, s) : cudaSuccess;
   const dim3 grid(cdiv(K, TILE), splits);
   const T* dyp = static_cast<const T*>(dy);
   const T* yp = static_cast<const T*>(y);
@@ -379,12 +407,8 @@ flbn_bwd_dw_tc_kernel(const DwArgs a, const __grid_constant__ CUtensorMap xmap,
       bntc::apply_prologue(st + xj * TB, rows, af, relu,
                            (tid >> 3) / kcb * 8 + (tid & 7),
                            TC_THREADS / kcb);
-    for (int r = (tid >> 3) / ncb; r < T; r += TC_THREADS / 8 / ncb) {
-      const uint32_t off = yj * TB + swz(r, tid & 7);
-      sts128(sdy + off, r < rows ? dyt.apply(lds128(sdy + off),
-                                             lds128(sy + off))
-                                 : make_uint4(0u, 0u, 0u, 0u));
-    }
+    bntc::apply_dy(sdy + yj * TB, sy + yj * TB, T, dyt,
+                   (tid >> 3) / ncb * 8 + (tid & 7), TC_THREADS / ncb, rows);
   };
 
   float acc[KW][NW][32];
@@ -616,6 +640,601 @@ int launch_bwd_dw_tc(const void* x, const float* mu, const float* inv,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 forward (#8) and dx (#9) on the tensor cores
+// ---------------------------------------------------------------------------
+
+namespace rowtc {
+
+using bntc::ROW;
+using bntc::swz;
+
+constexpr int T = 128;                   // pixel rows a tile, 64 a warpgroup
+constexpr uint32_t TB = T * ROW;         // a tile's 64-channel column block
+constexpr int CONSUMERS = 256;           // two warpgroups
+constexpr int TC_THREADS = CONSUMERS + 128;  // and the producer's
+constexpr int PRODUCER_REGS = 40;        // registers a thread after the
+constexpr int CONSUMER_REGS = 232;       // split (65,536 an SM)
+constexpr int SMEM_LIMIT = 232448;
+constexpr int RES_MAX = 64 * 1024;       // a resident weight slice at most
+constexpr int MAX_STAGES = 8;
+constexpr int NBAR = 2 * MAX_STAGES + 5;  // full, empty; weight; x full, empty
+constexpr int NCONST = 5;                // dx: mu, inv, gamma, beta, gamma inv
+
+struct RowArgs {
+  const float* mu;     // bn's vectors over K: the forward's prologue, the
+  const float* inv;    // dx epilogue's mask and scale
+  const float* gamma;
+  const float* beta;
+  const float* ds;     // dx: dY's terms over N
+  const float* dss;
+  double* part;        // (2, splits, Q): the forward's sum(y), sum(y^2), or
+                       // dx's dbeta, dgamma
+  long long M;
+  int R, Q;            // contracted and output channels: (K, N) in the
+                       // forward, (N, K) in dx
+  int per;             // pixel tiles a block
+  int splits;
+  int prologue;        // bntc::Prologue: on x (forward) or in dx's epilogue
+  int nch;             // 64-channel chunks of R
+  int stages;          // the ring's stages
+  int stage_bytes;
+  int xslots;          // dx with bn: x tiles held for the epilogue (1 or 2)
+  int oslots;          // staging tiles of the output (1 or 2)
+};
+
+// The block's (2, splits, Q) partial from each warp's running sums: lane
+// (g, t4) of every warp holds two columns of each 64-column block nb, j =
+// 0, 1: the forward's 2 lane + j (its rows warp + 8 k), dx's 32 j + 8 (g /
+// 2) + 2 t4 + g % 2 (rowsum's order, over the warp's accumulator rows).
+// Added over the 8 warps in order, through shared memory at `fin` (2 x 8
+// x QC doubles).
+template <bool DX, int NB>
+__device__ __forceinline__ void write_sums(const RowArgs& a,
+                                           const double (&tot)[2][NB][2],
+                                           double* fin, int q0) {
+  constexpr int QC = 64 * NB;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  sm90::bar_sync(1, CONSUMERS);
+#pragma unroll
+  for (int which = 0; which < 2; ++which)
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        fin[(which * 8 + warp) * QC + nb * 64 +
+            (DX ? 32 * j + 8 * (g >> 1) + 2 * t4 + (g & 1) : 2 * lane + j)] =
+            tot[which][nb][j];
+  sm90::bar_sync(1, CONSUMERS);
+  for (int e = tid; e < 2 * QC; e += CONSUMERS) {
+    const int which = e / QC, col = e - which * QC;
+    double t = 0.0;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) t += fin[(which * 8 + w) * QC + col];
+    if (q0 + col < a.Q)
+      a.part[(static_cast<long long>(which) * a.splits + blockIdx.x) * a.Q +
+             q0 + col] = t;
+  }
+}
+
+// v[u] (u < 8: the lane's 8 columns of one half of a 64-column block, each
+// summed over the lane's two rows) summed over the 8 lanes g that share t4,
+// a reduce-scatter in a fixed order: lane g ends with column u = g.
+__device__ __forceinline__ double rowsum(double (&v)[8], int lane) {
+#pragma unroll
+  for (int level = 0; level < 3; ++level) {
+    const int half = 4 >> level, mask = 16 >> level;
+    const bool up = (lane & mask) != 0;
+#pragma unroll
+    for (int u = 0; u < half; ++u) {
+      const double send = up ? v[u] : v[u + half];
+      const double keep = up ? v[u + half] : v[u];
+      v[u] = keep + __shfl_xor_sync(0xFFFFFFFFu, send, mask);
+    }
+  }
+  return v[0];
+}
+
+// Block (blockIdx.x: run of pixel tiles, blockIdx.y: QC = 64 NB output
+// channels from q0) of the forward (DX false: out = a w^T, a x with bn's
+// prologue) or of dx (DX true: da = dY w, dY formed over dy; with bn the
+// epilogue's mask and scale). Warpgroup 2 produces: one thread, with few
+// registers, issues every TMA copy into a ring of `stages` stages, each
+// the A chunk (T rows x 64 channels of x, or of dy and y) and, unless the
+// block's weight slice is resident (RES), its 64 x QC weight chunk; dx
+// with bn also has the x tile of its output columns copied for the
+// epilogue. Warpgroups 0 and 1 consume, 64 rows each: each transforms its
+// own rows of the A chunk in place, once, and runs wgmma with both
+// operands from shared memory (w K-major in the forward, MN-major in dx,
+// whose contracted index is w's row). The output tile leaves, 64 columns
+// at a time, rounded to bf16 through a swizzled staging tile and a TMA
+// store; the column sums are taken in double over each warp's rows (the
+// forward's from the staged tile, as stored; dx's by rowsum) and run on in
+// registers over the block's tiles. amap: x
+// (forward) or dy (dx) as (M, R); ymap: dx's y (M, N); wmap: w (N, K) in
+// boxes of 64 x QC (forward) or 64 x 64 (dx); xmap: dx's x (M, K); omap: y
+// (M, N) or dx (M, K); the activations' boxes T rows.
+template <bool DX, int NB, bool RES>
+__device__ __forceinline__ void rows_body(const RowArgs& a,
+                                          const CUtensorMap* amap,
+                                          const CUtensorMap* ymap,
+                                          const CUtensorMap* wmap,
+                                          const CUtensorMap* xmap,
+                                          const CUtensorMap* omap) {
+  using namespace sm90;
+  constexpr int QC = 64 * NB;
+  constexpr uint32_t BC = QC * ROW;  // one 64-deep chunk of the weight slice
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t sw = base;  // the resident weight slice
+  const uint32_t ring = sw + (RES ? a.nch * BC : 0);
+  const uint32_t sx = ring + a.stages * a.stage_bytes;
+  // dx runs bn's epilogue at most 128 wide (row_plan), so the 256-wide
+  // instance keeps its registers for the accumulators.
+  constexpr bool BN_OK = !DX || NB <= 2;
+  const bool bn = BN_OK && a.prologue != bntc::NONE;
+  const bool relu = a.prologue == bntc::AFFINE_RELU;
+  const bool xtile = DX && bn;  // dx's epilogue reads x
+  const uint32_t sout = sx + (xtile ? a.xslots * NB * TB : 0);
+  const uint32_t sconst = sout + a.oslots * TB;
+  const uint32_t sbar = sconst + (DX ? NCONST * QC * 4 : 0);
+  auto full = [&](int s) { return sbar + 8 * s; };
+  auto empty = [&](int s) { return sbar + 8 * (MAX_STAGES + s); };
+  const uint32_t wbar = sbar + 16 * MAX_STAGES;
+  auto xfull = [&](int i) { return wbar + 8 + 8 * i; };
+  auto xempty = [&](int i) { return wbar + 24 + 8 * i; };
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int split = blockIdx.x, q0 = blockIdx.y * QC;
+  const long long tiles = (a.M + T - 1) / T;
+  const long long tb = static_cast<long long>(split) * a.per;
+  const long long te = tb + a.per < tiles ? tb + a.per : tiles;
+  const int ntiles = te > tb ? static_cast<int>(te - tb) : 0;
+  const int steps = ntiles * a.nch;
+
+  if (tid == 0) {
+    prefetch_tensormap(amap);
+    prefetch_tensormap(wmap);
+    prefetch_tensormap(omap);
+    if (DX) prefetch_tensormap(ymap);
+    if (xtile) prefetch_tensormap(xmap);
+    for (int s = 0; s < a.stages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 2);  // one arrival a consumer warpgroup
+    }
+    mbar_init(wbar, 1);
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(xfull(i), 1);
+      mbar_init(xempty(i), 1);
+    }
+    fence_mbar_init();
+  }
+  // dx's epilogue constants of the block's output columns.
+  if (xtile) {
+    float* c = reinterpret_cast<float*>(smem_raw + (sconst - raw));
+    for (int i = tid; i < QC; i += TC_THREADS) {
+      const int k = q0 + i;
+      const bool ok = k < a.Q;
+      c[i] = ok ? a.mu[k] : 0.f;
+      c[QC + i] = ok ? a.inv[k] : 0.f;
+      c[2 * QC + i] = ok ? a.gamma[k] : 0.f;
+      c[3 * QC + i] = ok ? a.beta[k] : 0.f;
+      c[4 * QC + i] = ok ? __fmul_rn(a.gamma[k], a.inv[k]) : 0.f;
+    }
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS) {  // the producer
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (tid != CONSUMERS || steps == 0) return;
+    auto load_w = [&](uint32_t dst, int c, uint32_t bar) {
+      if (DX)  // boxes of 64 output (k) x 64 contracted (n) channels
+        for (int nb = 0; nb < NB; ++nb)
+          tma_load_2d(dst + nb * 64 * ROW, wmap, q0 + 64 * nb, 64 * c, bar);
+      else     // one box of 64 contracted (k) x QC output (n) channels
+        tma_load_2d(dst, wmap, 64 * c, q0, bar);
+    };
+    if (RES) {
+      mbar_expect_tx(wbar, a.nch * BC);
+      for (int c = 0; c < a.nch; ++c) load_w(sw + c * BC, c, wbar);
+    }
+    for (int q = 0; q < steps; ++q) {
+      const int s = q % a.stages, use = q / a.stages;
+      const int it = q / a.nch, c = q - it * a.nch;
+      const int p0 = static_cast<int>((tb + it) * T);
+      if (xtile && c == 0) {
+        const int xs = it % a.xslots, xuse = it / a.xslots;
+        if (xuse > 0) mbar_wait(xempty(xs), (xuse - 1) & 1);
+        mbar_expect_tx(xfull(xs), NB * TB);
+        for (int nb = 0; nb < NB; ++nb)
+          tma_load_2d(sx + (xs * NB + nb) * TB, xmap, q0 + 64 * nb, p0,
+                      xfull(xs));
+      }
+      if (use > 0) mbar_wait(empty(s), (use - 1) & 1);
+      const uint32_t st = ring + s * a.stage_bytes;
+      mbar_expect_tx(full(s), a.stage_bytes);
+      tma_load_2d(st, amap, 64 * c, p0, full(s));
+      if (DX) tma_load_2d(st + TB, ymap, 64 * c, p0, full(s));
+      if (!RES) load_w(st + (DX ? 2 : 1) * TB, c, full(s));
+    }
+    return;
+  }
+
+  setmaxnreg_inc<CONSUMER_REGS>();
+  // The consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63 of a tile;
+  // thread (g, t4) of warp wq of it holds rows r0 and r0 + 8 (sm90.cuh's
+  // accumulator layout).
+  const int wg = tid >> 7, wt = tid & 127, wq = warp & 3;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r0 = wg * 64 + wq * 16 + g;
+  const uint32_t arow = wg * 64 * ROW;
+  const bool sums = !DX || bn;
+  float acc[NB * 32];  // column block nb (64 wide): registers 32 nb on
+  double tot[2][NB][2];
+#pragma unroll
+  for (int w = 0; w < 2; ++w)
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) tot[w][nb][0] = tot[w][nb][1] = 0.0;
+  bntc::Affine af;
+  bntc::DyTerms dyt;
+  int q = 0, k_out = 0;
+  for (int it = 0; it < ntiles; ++it) {
+    const long long p0 = (tb + it) * T;
+    const int valid =
+        (a.M - p0 < T ? static_cast<int>(a.M - p0) : T) - wg * 64;
+#pragma unroll
+    for (int i = 0; i < NB * 32; ++i) acc[i] = 0.f;
+    fence_regs(acc);
+    for (int c = 0; c < a.nch; ++c, ++q) {
+      const int s = q % a.stages;
+      const uint32_t st = ring + s * a.stage_bytes;
+      // The chunk's constants load while its data lands.
+      if (a.nch > 1 || q == 0) {
+        if (DX)
+          dyt.load(a.ds, a.dss, 64 * c + 8 * (wt & 7), a.R);
+        else if (bn)
+          af.load(a.mu, a.inv, a.gamma, a.beta, 64 * c + 8 * (wt & 7), a.R);
+      }
+      mbar_wait(full(s), (q / a.stages) & 1);
+      if (RES && q == 0) mbar_wait(wbar, 0);
+      // The warpgroup's rows of the A chunk, in place, once: dY over dy,
+      // or bn's prologue over x; zero past M. Thread wt takes 16-byte
+      // chunk wt % 8 of rows wt / 8 + 16 i, all loads first.
+      if (DX || bn) {
+        uint4 v[4];
+        uint32_t off[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          off[i] = st + arow + swz((wt >> 3) + 16 * i, wt & 7);
+          v[i] = lds128(off[i]);
+        }
+        if (DX) {
+          uint4 yv[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) yv[i] = lds128(off[i] + TB);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) v[i] = dyt.apply(v[i], yv[i]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) v[i] = af.apply(v[i], relu);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          sts128(off[i], (wt >> 3) + 16 * i < valid
+                             ? v[i]
+                             : make_uint4(0u, 0u, 0u, 0u));
+        fence_async_shared();
+        bar_sync(2 + wg, 128);
+      }
+      const uint32_t bw = RES ? sw + c * BC : st + (DX ? 2 : 1) * TB;
+      // One instruction as wide as the block's output (A read once).
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t da = desc_k<64>(st + arow, kk);
+        const uint64_t db = DX ? (NB == 1 ? desc_mn<64>(bw, kk, 0)
+                                          : desc_mn_wide<64>(bw, kk))
+                               : desc_k<64>(bw, kk);
+        if constexpr (NB == 1)
+          mma_ss<DX ? 1 : 0>(acc, da, db, 1);
+        else if constexpr (NB == 2)
+          mma_ss_n128<DX ? 1 : 0>(acc, da, db, 1);
+        else
+          mma_ss_n256<DX ? 1 : 0>(acc, da, db, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // chunk c - 1 is done: its stage may be refilled
+      if (c > 0 && wt == 0) mbar_arrive(empty((q - 1) % a.stages));
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (wt == 0) mbar_arrive(empty((q - 1) % a.stages));
+
+    // Epilogue, 64 columns at a time.
+    uint32_t xt = 0;
+    if (xtile) {
+      const int xs = it % a.xslots;
+      xt = sx + xs * NB * TB;
+      mbar_wait(xfull(xs), (it / a.xslots) & 1);
+    }
+    const float* cst =  // dx's epilogue constants
+        reinterpret_cast<const float*>(smem_raw + (sconst - raw));
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb, ++k_out) {
+      const uint32_t stg = sout + (k_out % a.oslots) * TB;
+      if (a.oslots == 1) {  // the previous store has read the one slot
+        if (tid == 0) bulk_wait_read<0>();
+        bar_sync(1, CONSUMERS);
+      }
+      if (!DX) {  // y rounded to bf16
+#pragma unroll
+        for (int i = 0; i < 32; i += 2)
+          sts32(stg + swz(r0 + 8 * ((i >> 1) & 1), i >> 2) + 4 * t4,
+                pack_bf16(acc[32 * nb + i], acc[32 * nb + i + 1]));
+      } else {  // dx = da, or dz (gamma inv) with bn, and dz's sums
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          double vs[8], vq[8];
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            const int j = 4 * h + jj;  // the 8-column group
+            const int col = nb * 64 + 8 * j + 2 * t4;
+            float2 mu2{}, inv2{}, ga2{}, be2{}, gi2{};
+            if (bn) {
+              mu2 = *reinterpret_cast<const float2*>(cst + col);
+              inv2 = *reinterpret_cast<const float2*>(cst + QC + col);
+              ga2 = *reinterpret_cast<const float2*>(cst + 2 * QC + col);
+              be2 = *reinterpret_cast<const float2*>(cst + 3 * QC + col);
+              gi2 = *reinterpret_cast<const float2*>(cst + 4 * QC + col);
+            }
+#pragma unroll
+            for (int hr = 0; hr < 2; ++hr) {
+              const int i = 4 * j + 2 * hr;
+              const uint32_t off = swz(r0 + 8 * hr, j) + 4 * t4;
+              float o0 = acc[32 * nb + i], o1 = acc[32 * nb + i + 1];
+              if (bn) {
+                const uint32_t xr = lds32(xt + nb * TB + off);
+                const float2 xv = __bfloat1622float2(
+                    *reinterpret_cast<const __nv_bfloat162*>(&xr));
+                const float xh0 = __fmul_rn(__fsub_rn(xv.x, mu2.x), inv2.x);
+                const float xh1 = __fmul_rn(__fsub_rn(xv.y, mu2.y), inv2.y);
+                if (relu) {
+                  o0 = __fadd_rn(__fmul_rn(xh0, ga2.x), be2.x) > 0.f ? o0
+                                                                     : 0.f;
+                  o1 = __fadd_rn(__fmul_rn(xh1, ga2.y), be2.y) > 0.f ? o1
+                                                                     : 0.f;
+                }
+                const double d0 = o0, d1 = o1;  // dz
+                const double e0 = xh0, e1 = xh1;
+                vs[2 * jj] = hr ? vs[2 * jj] + d0 : d0;
+                vs[2 * jj + 1] = hr ? vs[2 * jj + 1] + d1 : d1;
+                vq[2 * jj] = hr ? __fma_rn(d0, e0, vq[2 * jj]) : d0 * e0;
+                vq[2 * jj + 1] =
+                    hr ? __fma_rn(d1, e1, vq[2 * jj + 1]) : d1 * e1;
+                o0 = __fmul_rn(o0, gi2.x);
+                o1 = __fmul_rn(o1, gi2.y);
+              }
+              sts32(stg + off, pack_bf16(o0, o1));
+            }
+          }
+          if (bn) {
+            tot[0][nb][h] += rowsum(vs, lane);
+            tot[1][nb][h] += rowsum(vq, lane);
+          }
+        }
+      }
+      // The slot is written; with two slots the other one's store has read
+      // it, so the next block may take it.
+      fence_async_shared();
+      if (tid == 0) bulk_wait_read<0>();
+      bar_sync(1, CONSUMERS);
+      if (tid == 0) {
+        tma_store_2d(omap, stg, q0 + 64 * nb, static_cast<int>(p0));
+        bulk_commit();
+      }
+      if (!DX) {
+        // sum(y) and sum(y^2) over y as stored, from the slot: warp w's
+        // rows w + 8 k in order, lane's columns 2 lane and 2 lane + 1
+        // (rows past M hold 0: their a was zeroed or arrived as 0).
+        double sy0 = 0.0, sy1 = 0.0, sq0 = 0.0, sq1 = 0.0;
+#pragma unroll
+        for (int k = 0; k < T / 8; ++k) {
+          const uint32_t v = lds32(stg + swz(warp + 8 * k, lane >> 2) +
+                                   4 * (lane & 3));
+          const float2 f = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&v));
+          const double d0 = f.x, d1 = f.y;
+          sy0 += d0;
+          sy1 += d1;
+          sq0 = __fma_rn(d0, d0, sq0);
+          sq1 = __fma_rn(d1, d1, sq1);
+        }
+        tot[0][nb][0] += sy0;
+        tot[0][nb][1] += sy1;
+        tot[1][nb][0] += sq0;
+        tot[1][nb][1] += sq1;
+      }
+    }
+    // Every read of the x tile is behind the last barrier.
+    if (xtile && tid == 0) mbar_arrive(xempty(it % a.xslots));
+  }
+  if (tid == 0) bulk_wait<0>();
+  // The ring is idle now: every copy into it has landed and been read.
+  if (sums)
+    write_sums<DX, NB>(a, tot,
+                       reinterpret_cast<double*>(smem_raw + (ring - raw)), q0);
+}
+
+template <int NB, bool RES>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+flbn_fwd_tc_kernel(const RowArgs a, const __grid_constant__ CUtensorMap xmap,
+                   const __grid_constant__ CUtensorMap wmap,
+                   const __grid_constant__ CUtensorMap ymap) {
+  rows_body<false, NB, RES>(a, &xmap, nullptr, &wmap, nullptr, &ymap);
+}
+
+template <int NB, bool RES>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+flbn_bwd_dx_tc_kernel(const RowArgs a,
+                      const __grid_constant__ CUtensorMap dymap,
+                      const __grid_constant__ CUtensorMap ymap,
+                      const __grid_constant__ CUtensorMap wmap,
+                      const __grid_constant__ CUtensorMap xmap,
+                      const __grid_constant__ CUtensorMap dxmap) {
+  rows_body<true, NB, RES>(a, &dymap, &ymap, &wmap, &xmap, &dxmap);
+}
+
+// The tile of a shape (R contracted, Q output channels): as wide as Q up
+// to 256 columns (64 where Q is 64, so no zeros are multiplied; 128 in dx
+// with bn, whose x tiles take shared memory), the weight slice resident
+// where it fits in RES_MAX, and as many stages as shared memory then
+// holds, with two staging tiles and, in dx with bn, two x tiles where
+// three stages still fit.
+struct RowPlan {
+  int nb, nch, stages, stage_bytes, xslots, oslots, smem;
+  bool res;
+};
+
+inline RowPlan row_plan(int R, int Q, bool dx, bool bn) {
+  RowPlan p;
+  p.nb = Q <= 64 ? 1 : (Q <= 128 || (dx && bn)) ? 2 : 4;
+  const int bc = 64 * p.nb * ROW;
+  p.nch = static_cast<int>(cdiv(R, 64));
+  p.res = static_cast<long long>(p.nch) * bc <= RES_MAX;
+  p.stage_bytes = TB * (dx ? 2 : 1) + (p.res ? 0 : bc);
+  const int xb = dx && bn ? p.nb * static_cast<int>(TB) : 0;
+  for (p.oslots = 2;; --p.oslots) {
+    const int fixed = 1024 + (p.res ? p.nch * bc : 0) + p.oslots * TB +
+                      (dx ? NCONST * 64 * p.nb * 4 : 0) + NBAR * 8;
+    p.xslots = xb && fixed + 2 * xb + 3 * p.stage_bytes <= SMEM_LIMIT ? 2 : 1;
+    const int left = SMEM_LIMIT - fixed - (xb ? p.xslots * xb : 0);
+    p.stages = left / p.stage_bytes;
+    if (p.stages > MAX_STAGES) p.stages = MAX_STAGES;
+    p.smem = SMEM_LIMIT - left + p.stages * p.stage_bytes;
+    if (p.stages >= 3 || p.oslots == 1) break;
+  }
+  return p;
+}
+
+// Pixels in one block's run: one block an SM over the output's column
+// blocks.
+inline long long run_rows(long long M, int R, int Q, bool dx, bool bn) {
+  const RowPlan p = row_plan(R, Q, dx, bn);
+  const long long tiles = cdiv(M, T);
+  if (tiles == 0) return T;
+  return bntc::tc_per(tiles, cdiv(Q, 64 * p.nb)) * T;
+}
+
+template <bool DX, int NB, bool RES>
+int launch_inst(const RowArgs& a, const CUtensorMap (&maps)[5], int smem,
+                dim3 grid, cudaStream_t s) {
+  if constexpr (DX) {
+    auto kernel = flbn_bwd_dx_tc_kernel<NB, RES>;
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, TC_THREADS, smem, s>>>(a, maps[0], maps[1], maps[2],
+                                          maps[3], maps[4]);
+  } else {
+    auto kernel = flbn_fwd_tc_kernel<NB, RES>;
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, TC_THREADS, smem, s>>>(a, maps[0], maps[1], maps[2]);
+  }
+  return cudaGetLastError();
+}
+
+template <bool DX>
+int launch(const RowArgs& a, const RowPlan& p, const CUtensorMap (&maps)[5],
+           cudaStream_t s) {
+  const dim3 grid(a.splits, static_cast<unsigned>(cdiv(a.Q, 64 * p.nb)));
+  if (p.res)
+    return p.nb == 1   ? launch_inst<DX, 1, true>(a, maps, p.smem, grid, s)
+           : p.nb == 2 ? launch_inst<DX, 2, true>(a, maps, p.smem, grid, s)
+                       : launch_inst<DX, 4, true>(a, maps, p.smem, grid, s);
+  return p.nb == 1   ? launch_inst<DX, 1, false>(a, maps, p.smem, grid, s)
+         : p.nb == 2 ? launch_inst<DX, 2, false>(a, maps, p.smem, grid, s)
+                     : launch_inst<DX, 4, false>(a, maps, p.smem, grid, s);
+}
+
+inline RowArgs make_args(const float* mu, const float* inv,
+                         const float* gamma, const float* beta,
+                         const float* ds, const float* dss, double* part,
+                         long long M, int R, int Q, bool relu, bool bn,
+                         int splits, const RowPlan& p) {
+  RowArgs a;
+  a.mu = mu;
+  a.inv = inv;
+  a.gamma = gamma;
+  a.beta = beta;
+  a.ds = ds;
+  a.dss = dss;
+  a.part = part;
+  a.M = M;
+  a.R = R;
+  a.Q = Q;
+  a.per = static_cast<int>(cdiv(cdiv(M, T), splits));
+  a.splits = splits;
+  a.prologue = !bn ? bntc::NONE : relu ? bntc::AFFINE_RELU : bntc::AFFINE;
+  a.nch = p.nch;
+  a.stages = p.stages;
+  a.stage_bytes = p.stage_bytes;
+  a.xslots = p.xslots;
+  a.oslots = p.oslots;
+  return a;
+}
+
+}  // namespace rowtc
+
+int launch_fwd_tc(const void* x, const void* w, const float* mu,
+                  const float* inv, const float* gamma, const float* beta,
+                  void* y, double* part, float* sum, float* sumsq,
+                  long long M, int K, int N, bool relu, bool bn, int splits,
+                  cudaStream_t s) {
+  using namespace rowtc;
+  if (M > 0x7FFFFFFFLL) return cudaErrorInvalidValue;  // TMA row coordinate
+  if (M > 0) {
+    const RowPlan p = row_plan(K, N, false, bn);
+    const RowArgs a = make_args(mu, inv, gamma, beta, nullptr, nullptr, part,
+                                M, K, N, relu, bn, splits, p);
+    CUtensorMap maps[5];  // x, w, y
+    int err = bntc::rows_map(&maps[0], x, M, K, T);
+    if (err == cudaSuccess) err = bntc::rows_map(&maps[1], w, N, K, 64 * p.nb);
+    if (err == cudaSuccess) err = bntc::rows_map(&maps[2], y, M, N, T);
+    if (err == cudaSuccess) err = launch<false>(a, p, maps, s);
+    if (err != cudaSuccess) return err;
+  }
+  return column_finish(part, sum, sumsq, N, M > 0 ? splits : 0, s);
+}
+
+int launch_bwd_dx_tc(const void* dy, const void* y, const float* ds,
+                     const float* dss, const void* w, const void* x,
+                     const float* mu, const float* inv, const float* gamma,
+                     const float* beta, void* dx, double* part, float* dbeta,
+                     float* dgamma, long long M, int K, int N, bool relu,
+                     bool bn, int splits, cudaStream_t s) {
+  using namespace rowtc;
+  if (M > 0x7FFFFFFFLL) return cudaErrorInvalidValue;  // TMA row coordinate
+  if (M > 0) {
+    const RowPlan p = row_plan(N, K, true, bn);
+    const RowArgs a = make_args(mu, inv, gamma, beta, ds, dss, part, M, N, K,
+                                relu, bn, splits, p);
+    CUtensorMap maps[5];  // dy, y, w, x, dx
+    int err = bntc::rows_map(&maps[0], dy, M, N, T);
+    if (err == cudaSuccess) err = bntc::rows_map(&maps[1], y, M, N, T);
+    if (err == cudaSuccess) err = bntc::rows_map(&maps[2], w, N, K, 64);
+    if (err == cudaSuccess) err = bntc::rows_map(&maps[3], x, M, K, T);
+    if (err == cudaSuccess) err = bntc::rows_map(&maps[4], dx, M, K, T);
+    if (err == cudaSuccess) err = launch<true>(a, p, maps, s);
+    if (err != cudaSuccess) return err;
+  }
+  if (!bn) return cudaSuccess;
+  return column_finish(part, dbeta, dgamma, K, M > 0 ? splits : 0, s);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Every entry point launches on
@@ -623,9 +1242,19 @@ int launch_bwd_dw_tc(const void* x, const float* mu, const float* inv,
 // launches (0 on success). With bn = 0 the vectors mu, inv, gamma, beta
 // are not read and may be null.
 
-// Row-tile runs of flbn_fwd (Q = N) and flbn_bwd_dx (Q = K): the wrapper
-// sizes their (2, splits, Q) double workspace with it.
-extern "C" int flbn_row_splits(long long M, int Q) { return row_splits(M, Q); }
+// Pixels in one block's run of flbn_fwd (dx = 0, output Q = N) or
+// flbn_bwd_dx (dx = 1, Q = K): the wrapper passes splits = cdiv(M, run)
+// and sizes the (2, splits, Q) double workspace with it; block s sums its
+// columns over pixels [s * run, (s + 1) * run). bf16 follows the card's SM
+// count.
+extern "C" long long flbn_run_rows(long long M, int K, int N, int dtype,
+                                   int dx, int bn) {
+  const int Q = dx ? K : N;
+  if (dtype == 0)
+    return M == 0 ? TILE : cdiv(cdiv(M, TILE), row_splits(M, Q)) * TILE;
+  return dx ? rowtc::run_rows(M, N, K, true, bn != 0)
+            : rowtc::run_rows(M, K, N, false, false);
+}
 
 // Contracted chunks of flbn_bwd_dw: its (splits, N, K) f32 workspace.
 extern "C" int flbn_dw_splits(long long M, int K, int N, int dtype) {
@@ -649,8 +1278,8 @@ extern "C" int flbn_fwd(const void* x, const void* w, const void* mu,
   return dtype == 0
              ? launch_fwd<F32Engine>(x, w, m, i, g, b, y, part, s0, s1, M, K,
                                      N, relu != 0, bn != 0, splits, s)
-             : launch_fwd<Bf16Engine>(x, w, m, i, g, b, y, part, s0, s1, M,
-                                      K, N, relu != 0, bn != 0, splits, s);
+             : launch_fwd_tc(x, w, m, i, g, b, y, part, s0, s1, M, K, N,
+                             relu != 0, bn != 0, splits, s);
 }
 
 // dbeta, dgamma and work are not written with bn = 0 and may be null.
@@ -675,9 +1304,9 @@ extern "C" int flbn_bwd_dx(const void* dy, const void* y, const void* ds,
              ? launch_bwd_dx<F32Engine>(dy, y, d0, d1, w, x, m, i, g, b, dx,
                                         part, db, dg, M, K, N, relu != 0,
                                         bn != 0, splits, s)
-             : launch_bwd_dx<Bf16Engine>(dy, y, d0, d1, w, x, m, i, g, b, dx,
-                                         part, db, dg, M, K, N, relu != 0,
-                                         bn != 0, splits, s);
+             : launch_bwd_dx_tc(dy, y, d0, d1, w, x, m, i, g, b, dx, part,
+                                db, dg, M, K, N, relu != 0, bn != 0, splits,
+                                s);
 }
 
 extern "C" int flbn_bwd_dw(const void* x, const void* mu, const void* inv,

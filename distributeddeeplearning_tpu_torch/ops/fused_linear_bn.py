@@ -13,10 +13,11 @@ and what the design does about it):
   columns' sum(y) and sum(y^2) over y as stored;
 - ``_bwd_dx_kernel`` -> :func:`linear_bn_bwd_dx`: dY = dy + ds + 2 y dss,
   da = dY @ w, and with ``bn`` dx, dbeta and dgamma through the prologue;
-- ``_bwd_dw_kernel`` -> :func:`linear_bn_bwd_dw`: dw = dY^T @ a. In bf16
-  it runs on the tensor cores (wgmma, TMA copies into swizzled shared
-  memory, persistent blocks over fixed chunks of M); #8, #9 and every f32
-  instance run on the mma.sync / FMA tile product of ``csrc/bn_gemm.cuh``.
+- ``_bwd_dw_kernel`` -> :func:`linear_bn_bwd_dw`: dw = dY^T @ a.
+
+In bf16 all three run on the tensor cores (wgmma, TMA copies into swizzled
+shared memory, persistent blocks over fixed runs or chunks of M); every f32
+instance runs on the FMA tile product of ``csrc/bn_gemm.cuh``.
 
 Layouts: x is (M, K) and y (M, N), row-major: the (N*H*W, C) view of a
 channels_last activation. The weight is the port's (N, K, 1, 1) convolution
@@ -197,15 +198,27 @@ def _f32(n: int, like: torch.Tensor, *lead: int) -> torch.Tensor:
     return torch.empty((*lead, n), dtype=torch.float32, device=like.device)
 
 
+def run_rows(m: int, k: int, n: int, dtype: torch.dtype, *, dx: bool,
+             bn: bool) -> int:
+    """The pixels of one block's run in kernel #8 (``dx`` False) or #9
+    (``dx`` True) at this shape: block s sums its columns (sum(y) and
+    sum(y^2), or dbeta and dgamma) over pixels [s * run, (s + 1) * run)
+    into its own partial, and the partials are summed in order. Depends on
+    the current card's SM count for bf16."""
+    return _fn("flbn_run_rows", (_L, _I, _I, _I, _I, _I), _L)(
+        m, k, n, _DTYPES[dtype], int(dx), int(bn))
+
+
 def linear_bn_fwd_cuda(x, mu, inv, gamma, beta, w, *, relu: bool, bn: bool):
     """Launch kernel #8: (y, sum, sumsq) as :func:`linear_bn_fwd_reference`."""
     global fwd_launches
     (m, k), n = x.shape, w.shape[0]
-    splits = _fn("flbn_row_splits", (_L, _I))(m, n)
     y = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    work = torch.empty((2, splits, n), dtype=torch.float64, device=x.device)
     s, ss = _f32(n, x), _f32(n, x)
     with torch.cuda.device(x.device):
+        splits = -(-m // run_rows(m, k, n, x.dtype, dx=False, bn=bn))
+        work = torch.empty((2, splits, n), dtype=torch.float64,
+                           device=x.device)
         _run("flbn_fwd", (_P,) * 10 + (_L, _I, _I, _I, _I, _I, _I),
              x.data_ptr(), w.data_ptr(), _ptr(mu), _ptr(inv), _ptr(gamma),
              _ptr(beta), y.data_ptr(), work.data_ptr(), s.data_ptr(),
@@ -221,12 +234,12 @@ def linear_bn_bwd_dx_cuda(dy, y, ds, dss, w, x, mu, inv, gamma, beta, *,
     :func:`linear_bn_bwd_dx_reference`."""
     global bwd_dx_launches
     (m, k), n = x.shape, w.shape[0]
-    splits = _fn("flbn_row_splits", (_L, _I))(m, k)
     dx = torch.empty_like(x)
-    work = torch.empty((2, splits, k), dtype=torch.float64,
-                       device=x.device) if bn else None
     db, dg = (_f32(k, x), _f32(k, x)) if bn else (None, None)
     with torch.cuda.device(x.device):
+        splits = -(-m // run_rows(m, k, n, x.dtype, dx=True, bn=bn))
+        work = torch.empty((2, splits, k), dtype=torch.float64,
+                           device=x.device) if bn else None
         _run("flbn_bwd_dx", (_P,) * 14 + (_L, _I, _I, _I, _I, _I, _I),
              dy.data_ptr(), y.data_ptr(), ds.data_ptr(), dss.data_ptr(),
              w.data_ptr(), x.data_ptr(), _ptr(mu), _ptr(inv), _ptr(gamma),

@@ -553,7 +553,10 @@ def _flbn_inputs(device, dtype, m, k, n, seed):
                                    (3001, 64, 64), (2053, 64, 128),
                                    (5003, 128, 64), (1031, 128, 128),
                                    (777, 128, 256), (37, 64, 128),
-                                   (2000, 384, 320)])
+                                   (2000, 384, 320), (25088, 2048, 512),
+                                   (25088, 512, 2048), (3001, 1024, 64),
+                                   (4093, 64, 1024), (1500, 512, 128),
+                                   (77, 2048, 512)])
 def test_linear_bn_kernels_match_plain(cuda_device, dtype, variant, m, k,
                                        n):
     """#8-#10 against their plain versions at ragged M (no multiple of a
@@ -563,7 +566,13 @@ def test_linear_bn_kernels_match_plain(cuda_device, dtype, variant, m, k,
     between the warpgroups), 64 x 128, 64 x 256, 128 x 64, 256 x 64,
     128 x 128, 128 x 256 and 256 x 128 (K above 128: a second K tile
     wholly past K at K = 384, and N = 320 not a multiple of the tile), and
-    M = 37, shorter than one tile and so than one chunk."""
+    M = 37, shorter than one tile and so than one chunk. For the bf16
+    tensor-core forward's and dx's tiles (row_plan, 64, 128 or 256 output
+    channels a block, the weight slice resident or streamed): stage 4's
+    conv1 and conv3 (25,088 x 2048 -> 512 and 512 -> 2048: streamed, four
+    and eight column blocks, dx with bn at 128 wide), a 64-wide output
+    over a streamed weight (1024 -> 64 forward, 1024 -> 64 dx), 128-wide
+    streamed (512 -> 128), and M = 77 at stage 4's widths."""
     bn, relu = FLBN_VARIANTS[variant]
     x, w, vecs, dy, y, ds, dss = _flbn_inputs(cuda_device, dtype, m, k, n,
                                               m + k + n)
@@ -638,6 +647,64 @@ def test_linear_bn_reductions_repeat_bitwise(cuda_device, dtype):
         dws = [tflb.linear_bn_bwd_dw(x, *vecs, dy, y, ds, dss, relu=True,
                                      bn=True) for _ in range(2)]
         assert torch.equal(*dws)
+    # #8's and #9's sums at the bf16 tile plans of stage 1's conv3 (a
+    # 256-wide forward and a 64-wide dx over a resident weight), stage 1's
+    # conv1 (64 wide, 128-wide dx) and stage 4's (streamed weights).
+    for m, k, n in ((200003, 64, 256), (100003, 256, 64),
+                    (25088, 512, 2048)):
+        x, w, vecs, dy, y, ds, dss = _flbn_inputs(cuda_device, dtype, m, k,
+                                                  n, 8)
+        runs = []
+        for _ in range(2):
+            _, s, ss = tflb.linear_bn_fwd(x, *vecs, w, relu=True, bn=True)
+            _, db, dg = tflb.linear_bn_bwd_dx(dy, y, ds, dss, w, x, *vecs,
+                                              relu=True, bn=True)
+            runs.append((s, ss, db, dg))
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(200003, 64, 256), (100003, 256, 64)])
+def test_linear_bn_sums_fail_without_one_run(cuda_device, dtype, m, k, n):
+    """#8's sum(y) and sum(y^2) and #9's dbeta and dgamma pass their
+    limits, and sums that lack one block's run of pixels (run_rows: the
+    middle block's, taken out of the kernel's own sums) fail them."""
+    x, w, vecs, dy, y, ds, dss = _flbn_inputs(cuda_device, dtype, m, k, n, 9)
+    mu, inv, gamma, beta = vecs
+
+    def middle_run(dx):
+        run = tflb.run_rows(m, k, n, dtype, dx=dx, bn=True)
+        assert 0 < run < m
+        r0 = (-(-m // run) // 2) * run
+        return slice(r0, r0 + run)
+
+    out, s, ss = tflb.linear_bn_fwd(x, *vecs, w, relu=True, bn=True)
+    ref, rs, rss = tflb.linear_bn_fwd_reference(x, *vecs, w, relu=True,
+                                                bn=True)
+    rf, of = ref.float(), out.float()
+    gone = of[middle_run(False)].double()
+    dx, db, dg = tflb.linear_bn_bwd_dx(dy, y, ds, dss, w, x, *vecs,
+                                       relu=True, bn=True)
+    _, rdb, rdg = tflb.linear_bn_bwd_dx_reference(dy, y, ds, dss, w, x,
+                                                  *vecs, relu=True, bn=True)
+    xh = (x.float() - mu) * inv
+    da = tflb._dy_total(dy, y, ds, dss).float() @ w.float()
+    dz = torch.where(xh * gamma + beta > 0, da, 0.0)
+    rows = middle_run(True)
+    cases = (
+        (s, rs, rf.abs().sum(dim=0), (of - rf).abs().sum(dim=0), gone),
+        (ss, rss, (rf * rf).sum(dim=0),
+         (of * of - rf * rf).abs().sum(dim=0), gone * gone),
+        (db, rdb, dz.abs().sum(dim=0), 0.0, dz[rows].double()),
+        (dg, rdg, (dz * xh).abs().sum(dim=0), 0.0,
+         dz[rows].double() * xh[rows]))
+    for got, want, terms, flips, lost in cases:
+        _sums_close(got, want, terms, flips)
+        with pytest.raises(AssertionError):
+            _sums_close((got.double() - lost.sum(dim=0)).float(), want,
+                        terms, flips)
 
 
 @pytest.mark.cuda
