@@ -10,7 +10,7 @@ Run from the root of a checkout. Phases:
    csrc`` (one ``nvcc`` per source, all started together), timed, with
    the registers and spills from ptxas of the tensor-core kernels (the
    flash forward's and backward's, the bf16 1x1 forward's, dx's and dw's
-   and 3x3 forward's and dw's);
+   and 3x3 forward's, dx's and dw's);
 3. the flash forward against its plain PyTorch version on the card over a
    grid of shapes, with its device time (CUDA-graph replay, no host launch
    work), its eager per-call time, the plain version's and the one-call
@@ -78,7 +78,8 @@ Run from the root of a checkout. Phases:
    convolution) as the library yardstick; the sums of #11 and #12 and the
    whole of #13 run twice and must repeat bit for bit, each dw check
    must fail a dw that lacks one of #13's chunks of M, and each check of
-   #11's sums must fail sums that lack one block's run of pixels;
+   #11's and #12's sums must fail sums that lack one block's run of
+   pixels;
 16. the ``--fused-block --fused-conv3`` training path, as phase 14: each
    matmul kernel launched 36 x steps times, each 3x3 kernel 13 x steps
    times, no other kernel of the port;
@@ -380,7 +381,8 @@ def ptxas_key(mangled: str) -> str | None:
     """The report's name of a kernel instance: the flash backward's and
     the tensor-core forward's as name<D,dropout>, the bf16 tensor-core
     BatchNorm kernels' as name<template arguments> (the 3x3 forward's MT,
-    NB, resident weights; the 1x1 dw's KW, NW); None for the others."""
+    NB, resident weights; the 3x3 dx's NB, resident weights; the 1x1 dw's
+    KW, NW); None for the others."""
     import re
 
     k = re.search(r"(flash_(?:dq|dkv|fwd_tc)(?:_tc)?_kernel)ILi(\d+)E"
@@ -657,8 +659,9 @@ FLBN_KERNELS = ("flbn_fwd_kernel", "flbn_bwd_dx_kernel", "flbn_bwd_dw_kernel",
                 "flbn_bwd_dw_tc_kernel", "flbn_column_finish_kernel",
                 "flbn_dw_finish_kernel")
 FCBN_KERNELS = ("fcbn_fwd_kernel", "fcbn_bwd_dx_kernel", "fcbn_bwd_dw_kernel",
-                "fcbn_fwd_tc_kernel", "fcbn_bwd_dw_tc_kernel",
-                "fcbn_column_finish_kernel", "fcbn_dw_finish_kernel")
+                "fcbn_fwd_tc_kernel", "fcbn_bwd_dx_tc_kernel",
+                "fcbn_bwd_dw_tc_kernel", "fcbn_column_finish_kernel",
+                "fcbn_dw_finish_kernel")
 BN_KERNELS = ("bn_stats_partial_kernel", "bn_apply_kernel",
               "bn_bwd_reduce_partial_kernel", "bn_bwd_dx_kernel",
               "bn_finish_kernel")
@@ -1930,8 +1933,8 @@ def conv_bn_case(fcbn, b, h, w, cin, cout, bn, relu, dtype,
     ``torch.nn.grad.conv2d_input`` and ``conv2d_weight`` for the backward,
     with no prologue and no sums). The reductions run twice and must agree
     bit for bit; the dw check must fail a dw that lacks one of #13's chunks
-    of M, and the check of #11's sums sums that lack one block's run of
-    pixels."""
+    of M, and the checks of #11's and #12's sums sums that lack one block's
+    run of pixels."""
     import torch
     import torch.nn.functional as F
 
@@ -1972,18 +1975,21 @@ def conv_bn_case(fcbn, b, h, w, cin, cout, bn, relu, dtype,
                   + (of - rf).abs().sum(dim=0) + 1e-30),
         col_share(ss, rss, FLBN_SUM_TOL * (rf * rf).sum(dim=0)
                   + (of * of - rf * rf).abs().sum(dim=0) + 1e-30)]
+    def middle_run(run):
+        """The rows of the middle block's run of ``run`` pixels."""
+        r0 = (-(-m // run) // 2) * run
+        return slice(r0, r0 + run)
+
     # The limits must see sums that lack one block's run of pixels: the
     # middle block's, taken out of the kernel's own sums.
-    run = fcbn.fwd_run_rows(m, w, cin, cout, tdt)
-    r0 = (-(-m // run) // 2) * run
-    gone = of[r0:r0 + run].double()
-    lost_run = min(
+    gone = of[middle_run(fcbn.fwd_run_rows(m, w, cin, cout, tdt))].double()
+    lost_run = {"conv3x3_bn_fwd": min(
         col_share((s.double() - gone.sum(dim=0)).float(), rs,
                   FLBN_SUM_TOL * rf.abs().sum(dim=0)
                   + (of - rf).abs().sum(dim=0) + 1e-30)[1],
         col_share((ss.double() - (gone * gone).sum(dim=0)).float(), rss,
                   FLBN_SUM_TOL * (rf * rf).sum(dim=0)
-                  + (of * of - rf * rf).abs().sum(dim=0) + 1e-30)[1])
+                  + (of * of - rf * rf).abs().sum(dim=0) + 1e-30)[1])}
     finite = bool(torch.isfinite(of).all())
     del out, ref, of, rf, s2, ss2, gone
 
@@ -1997,15 +2003,20 @@ def conv_bn_case(fcbn, b, h, w, cin, cout, bn, relu, dtype,
     dyt = fcbn._dy_total(dy, y, ds, dss)
     errs["conv3x3_bn_bwd_dx"] = [prod_share(rows(dx), rows(rdx))]
     if bn:
-        xh = (x.float() - mu) * inv
-        da = fcbn._conv(dyt, wt.flip(2, 3).transpose(0, 1))
+        xh = rows((x.float() - mu) * inv)
+        da = rows(fcbn._conv(dyt, wt.flip(2, 3).transpose(0, 1)))
         dz = torch.where(xh * gamma + beta > 0, da, 0.0) if relu else da
-        errs["conv3x3_bn_bwd_dx"] += [
-            col_share(db, rdb, FLBN_SUM_TOL * rows(dz).abs().sum(dim=0)
-                      + 1e-30),
-            col_share(dg, rdg, FLBN_SUM_TOL * rows(dz * xh).abs().sum(dim=0)
-                      + 1e-30)]
-        del xh, da, dz
+        limits = (FLBN_SUM_TOL * dz.abs().sum(dim=0) + 1e-30,
+                  FLBN_SUM_TOL * (dz * xh).abs().sum(dim=0) + 1e-30)
+        errs["conv3x3_bn_bwd_dx"] += [col_share(db, rdb, limits[0]),
+                                      col_share(dg, rdg, limits[1])]
+        run = middle_run(fcbn.bwd_dx_run_rows(m, w, cin, cout, tdt))
+        lost_run["conv3x3_bn_bwd_dx"] = min(
+            col_share((db.double() - dz[run].double().sum(dim=0)).float(),
+                      rdb, limits[0])[1],
+            col_share((dg.double() - (dz[run].double() * xh[run])
+                       .sum(dim=0)).float(), rdg, limits[1])[1])
+        del xh, da, dz, limits
     finite = finite and bool(torch.isfinite(dx.float()).all())
     del dx, again, rdx
 
@@ -2053,8 +2064,8 @@ def conv_bn_case(fcbn, b, h, w, cin, cout, bn, relu, dtype,
     for name, (kernel, plain, library) in runs.items():
         share = max(e[1] for e in errs[name])
         ok_repeat = repeat[name] is not False
-        sees_drop = {"conv3x3_bn_bwd_dw": dropped > 1.0,
-                     "conv3x3_bn_fwd": lost_run > 1.0}.get(name, True)
+        sees_drop = (name != "conv3x3_bn_bwd_dw" or dropped > 1.0) and \
+            lost_run.get(name, 2.0) > 1.0
         bound, by = conv_bn_bound(name, b, h, w, cin, cout, bn, dtype)
         rows_out.append({
             "kernel": name, "b": b, "h": h, "w": w, "cin": cin,
@@ -2063,8 +2074,8 @@ def conv_bn_case(fcbn, b, h, w, cin, cout, bn, relu, dtype,
             "err_over_tol": share, "repeats": repeat[name],
             **({"dropped_chunk_over_tol": dropped}
                if name == "conv3x3_bn_bwd_dw" else {}),
-            **({"lost_run_over_tol": lost_run}
-               if name == "conv3x3_bn_fwd" else {}),
+            **({"lost_run_over_tol": lost_run[name]}
+               if name in lost_run else {}),
             "ok": finite and share <= 1.0 and ok_repeat and sees_drop,
             "ms": device_ms(kernel), "plain_ms": device_ms(plain),
             "library_ms": device_ms(library), "bound_ms": bound,

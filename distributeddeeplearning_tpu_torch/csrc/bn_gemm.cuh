@@ -1,21 +1,22 @@
-// The tile product shared by the port's BatchNorm-carrying GEMMs for Hopper
-// (sm_90a): the matmul kernels of fused_linear_bn.cu (a bottleneck's 1x1
-// convolutions, #8-#10, bf16 and f32) and, of the implicit-GEMM 3x3 kernels
-// of fused_conv_bn.cu, the dx kernel (#12, bf16 and f32) and the f32
-// forward and dw (#11, #13). The bf16 3x3 forward and dw run on the wgmma
-// bodies of conv3x3_tc.cuh instead; nothing here serves them.
+// The f32 tile product shared by the port's BatchNorm-carrying GEMMs for
+// Hopper (sm_90a): the f32 instances of the matmul kernels of
+// fused_linear_bn.cu (a bottleneck's 1x1 convolutions, #8-#10) and of the
+// implicit-GEMM 3x3 kernels of fused_conv_bn.cu (#11-#13). Every bf16
+// instance runs on wgmma instead (bn_tc.cuh, conv3x3_tc.cuh, sm90.cuh);
+// nothing here serves bf16 but dw_finish_body's rounding of the tensor-core
+// dw kernels' f32 partials, and column_finish_body.
 //
 // An operand is a *source*: a struct with Source's interface (a Frag of
 // registers, fetch(row, col, frag) issuing one vector's global load,
 // apply(frag, out) transforming it). Source reads a row-major (rows, cols)
 // matrix; fused_conv_bn.cu adds sources that read the implicit im2col
-// matrix of a 3x3 convolution. The engines load a source's tiles into
-// shared memory (along or across its rows), run the product on the tensor
-// cores (bf16, mma.sync.m16n8k16) or the CUDA cores (f32 FMA), and hand
-// each output pair to an epilogue. The *_body functions below are the
-// three kernels' bodies over any sources; each .cu builds its sources and
-// calls them from its own __global__ kernels, which keep their names in a
-// profile. See fused_linear_bn.cu's note for the design and its reasons.
+// matrix of a 3x3 convolution. The engine (F32Engine) loads a source's
+// tiles into shared memory (along or across its rows), runs the product on
+// the CUDA cores (FMA) and hands each output pair to an epilogue. The
+// *_body functions below are the three kernels' bodies over any sources;
+// each .cu builds its sources and calls them from its own __global__
+// kernels, which keep their names in a profile. See fused_linear_bn.cu's
+// note for the design and its reasons.
 
 #pragma once
 
@@ -44,47 +45,22 @@ template <> struct Vec<float> {
   using Raw = float4;
   static constexpr int N = 4;
 };
-template <> struct Vec<__nv_bfloat16> {
-  using Raw = uint4;
-  static constexpr int N = 8;
-};
 
 __device__ __forceinline__ void unpack(const float4& r, float (&v)[4]) {
   v[0] = r.x; v[1] = r.y; v[2] = r.z; v[3] = r.w;
-}
-
-__device__ __forceinline__ void unpack(const uint4& r, float (&v)[8]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
 }
 
 template <typename T> __device__ __forceinline__ float round_to(float v);
 template <> __device__ __forceinline__ float round_to<float>(float v) {
   return v;
 }
-template <> __device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
 
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
 
 __device__ __forceinline__ void load2(const float* p, float (&v)[2]) {
   const float2 f = *reinterpret_cast<const float2*>(p);
-  v[0] = f.x; v[1] = f.y;
-}
-__device__ __forceinline__ void load2(const __nv_bfloat16* p, float (&v)[2]) {
-  const float2 f =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
   v[0] = f.x; v[1] = f.y;
 }
 
@@ -157,155 +133,6 @@ struct Source {
         out[j] = round_to<T>(t);
       }
     }
-  }
-};
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// bf16 tile product on the tensor cores. Each operand tile is TILE rows
-// (its output index) x BR (the contracted index), stored [TILE][PITCH] with
-// the contracted index contiguous, as mma's row-major A and column-major B
-// fragments want. 8 warps: 2 along the first output index, 4 along the
-// second, each 64 x 32 outputs of m16n8 tiles.
-struct Bf16Engine {
-  using T = __nv_bfloat16;
-  static constexpr int BR = 32;
-  static constexpr int PITCH = BR + 8;  // 80-byte rows: fragment loads
-  static constexpr int WORDS = PITCH / 2;  // hit 32 distinct banks
-  static constexpr int TILE_ELEMS = TILE * PITCH;
-  static constexpr int SMEM = 2 * TILE_ELEMS * 2;
-  static constexpr int SLOTS = 4;  // column pairs a thread owns
-  // Two blocks an SM (registers capped at 128, a few spilled) ran the
-  // ResNet-50 shapes faster than one block with the 130-172 registers the
-  // kernels take uncapped.
-  static constexpr int MIN_BLOCKS = 2;
-
-  float acc[4][4][4];
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
-  }
-
-  // TRANS false: the source's rows are the tile's rows, each thread loads
-  // 8 contracted values of one row. TRANS true: the source's rows are the
-  // contracted index; each thread loads 8 tile rows of two consecutive
-  // contracted rows and stores them as 8 bf16 pairs.
-  template <class Src, bool TRANS>
-  struct Loader {
-    typename Src::Frag f[2];
-
-    __device__ __forceinline__ void fetch(const Src& s, long long r0,
-                                          long long k0) {
-      const int tid = threadIdx.x;
-      if (!TRANS) {
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          s.fetch(r0 + tid / 4 + 64 * i,
-                  static_cast<int>(k0) + (tid % 4) * 8, f[i]);
-      } else {
-        const int lane = tid & 31, warp = tid >> 5;
-        const int kp = (lane >> 1) & 15, rv = (lane & 1) + 2 * warp;
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          s.fetch(k0 + 2 * kp + i, static_cast<int>(r0) + rv * 8, f[i]);
-      }
-    }
-
-    __device__ __forceinline__ void commit(const Src& s, T* tile) const {
-      const int tid = threadIdx.x;
-      if (!TRANS) {
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          float v[8];
-          s.apply(f[i], v);
-          uint4 u;
-          __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-            h[q] = __floats2bfloat162_rn(v[2 * q], v[2 * q + 1]);
-          *reinterpret_cast<uint4*>(tile + (tid / 4 + 64 * i) * PITCH +
-                                    (tid % 4) * 8) = u;
-        }
-      } else {
-        const int lane = tid & 31, warp = tid >> 5;
-        const int kp = (lane >> 1) & 15, rv = (lane & 1) + 2 * warp;
-        float lo[8], hi[8];
-        s.apply(f[0], lo);
-        s.apply(f[1], hi);
-        uint32_t* t32 = reinterpret_cast<uint32_t*>(tile);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          __nv_bfloat162 h = __floats2bfloat162_rn(lo[j], hi[j]);
-          t32[(rv * 8 + j) * WORDS + kp] = *reinterpret_cast<uint32_t*>(&h);
-        }
-      }
-    }
-  };
-
-  __device__ __forceinline__ void compute(const T* sa, const T* sb) {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int g = lane >> 2, t = lane & 3, wp = warp >> 2, wq = warp & 3;
-    const uint32_t* a32 = reinterpret_cast<const uint32_t*>(sa);
-    const uint32_t* b32 = reinterpret_cast<const uint32_t*>(sb);
-#pragma unroll
-    for (int ks = 0; ks < BR / 16; ++ks) {
-      uint32_t a[4][4], b[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi) {
-        const int base = (wp * 64 + mi * 16 + g) * WORDS + ks * 8 + t;
-        a[mi][0] = a32[base];
-        a[mi][1] = a32[base + 8 * WORDS];
-        a[mi][2] = a32[base + 4];
-        a[mi][3] = a32[base + 8 * WORDS + 4];
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int base = (wq * 32 + ni * 8 + g) * WORDS + ks * 8 + t;
-        b[ni][0] = b32[base];
-        b[ni][1] = b32[base + 4];
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], a[mi], b[ni]);
-    }
-  }
-
-  // f(p, q, slot, v(p, q), v(p, q + 1)) for each pair of adjacent outputs
-  // the thread owns, p and q local to the tile.
-  template <class F>
-  __device__ __forceinline__ void for_pairs(F&& f) const {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int g = lane >> 2, t = lane & 3, wp = warp >> 2, wq = warp & 3;
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          f(wp * 64 + mi * 16 + g + 8 * h, wq * 32 + ni * 8 + 2 * t, ni,
-            acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
-  }
-
-  static __device__ __forceinline__ int slot_col(int slot) {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    return (warp & 3) * 32 + slot * 8 + 2 * (lane & 3);
-  }
-
-  static __device__ __forceinline__ int group() {
-    return (threadIdx.x >> 7) * 8 + ((threadIdx.x & 31) >> 2);
   }
 };
 

@@ -1,9 +1,11 @@
 // Pieces shared by the port's tensor-core BatchNorm products for Hopper
-// (sm_90a): the bf16 3x3 forward and dw of conv3x3_tc.cuh (#11, #13) and
-// the bf16 1x1 forward, dx and dw of fused_linear_bn.cu (#8-#10). On the
-// device: the layout of a 64-channel row of a TMA box, bn's prologue and
-// dY = dy + ds + 2 y dss for the 8 channels of one 16-byte chunk, in place
-// in shared memory.
+// (sm_90a): the bf16 3x3 forward, dx and dw of conv3x3_tc.cuh (#11-#13)
+// and the bf16 1x1 forward, dx and dw of fused_linear_bn.cu (#8-#10). On
+// the device: the layout of a 64-channel row of a TMA box, bn's prologue
+// and dY = dy + ds + 2 y dss for the 8 channels of one 16-byte chunk, in
+// place in shared memory; the two dx kernels' epilogue (mask, scale, and
+// the column sums by a fixed shuffle reduce-scatter) and the block's
+// partial of column sums.
 // On the host: the TMA tensor maps of row-major (M, C) activations and the
 // split of a persistent grid over the card's SMs.
 
@@ -148,6 +150,186 @@ __device__ __forceinline__ void apply_dy(uint32_t sdy, uint32_t sy, int rows,
     sm90::sts128(sdy + off, r < valid ? dyt.apply(sm90::lds128(sdy + off),
                                                   sm90::lds128(sy + off))
                                       : make_uint4(0u, 0u, 0u, 0u));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dx's epilogue through bn's prologue (the 1x1 dx #9 and the 3x3 dx #12):
+// over a warpgroup's accumulator of 64 rows, the ReLU mask, the scale and
+// the column sums dbeta = sum(dz), dgamma = sum(dz * xh) in double
+// ---------------------------------------------------------------------------
+
+constexpr int NCONST = 5;  // the epilogue's constants: mu, inv, gamma, beta,
+                           // gamma inv
+
+// The constants of output columns q0 .. q0 + QC - 1 (of Q) into c, QC
+// apart in the order above, 0 past Q; by nthreads threads.
+__device__ __forceinline__ void load_dx_consts(float* c, const float* mu,
+                                               const float* inv,
+                                               const float* gamma,
+                                               const float* beta, int q0,
+                                               int Q, int QC, int tid,
+                                               int nthreads) {
+  for (int i = tid; i < QC; i += nthreads) {
+    const int k = q0 + i;
+    const bool ok = k < Q;
+    c[i] = ok ? mu[k] : 0.f;
+    c[QC + i] = ok ? inv[k] : 0.f;
+    c[2 * QC + i] = ok ? gamma[k] : 0.f;
+    c[3 * QC + i] = ok ? beta[k] : 0.f;
+    c[4 * QC + i] = ok ? __fmul_rn(gamma[k], inv[k]) : 0.f;
+  }
+}
+
+// v[u] (u < 8: the lane's 8 columns of one half of a 64-column block, each
+// summed over the lane's two rows) summed over the 8 lanes g that share t4,
+// a reduce-scatter in a fixed order: lane g ends with column u = g.
+__device__ __forceinline__ double rowsum(double (&v)[8], int lane) {
+#pragma unroll
+  for (int level = 0; level < 3; ++level) {
+    const int half = 4 >> level, mask = 16 >> level;
+    const bool up = (lane & mask) != 0;
+#pragma unroll
+    for (int u = 0; u < half; ++u) {
+      const double send = up ? v[u] : v[u + half];
+      const double keep = up ? v[u + half] : v[u];
+      v[u] = keep + __shfl_xor_sync(0xFFFFFFFFu, send, mask);
+    }
+  }
+  return v[0];
+}
+
+// dx of one 64-column block: acc[base .. base + 31], a warpgroup's 64 x 64
+// accumulator in sm90.cuh's layout (register 4 j + 2 hr (+ 1) at row r0 + 8
+// hr, columns 8 j + 2 t4 (+ 1); r0 = the warp's first row + lane / 4),
+// rounded to bf16 into the block's swizzled staging tile at stg. With BN:
+// xh = (x - mu) * inv from the block's swizzled x tile at xt, dz = acc
+// masked by xh * gamma + beta > 0 (RELU), dx = dz * (gamma inv), and the
+// warp's column sums of dz and dz * xh in double into sums[0][h],
+// sums[1][h] (h: the 32-column half; lane g holds its column 32 h + 8 (g /
+// 2) + 2 t4 + g % 2, rowsum's order). Without BN, dx = acc and sums is not
+// written. cst: load_dx_consts's constants, QC apart, from the block's
+// first column. Each half reads all it needs from shared memory first,
+// then computes, then stores, so the reads are in flight together.
+template <bool BN, bool RELU, int N>
+__device__ __forceinline__ void dx_block_of(const float (&acc)[N], int base,
+                                            uint32_t xt, uint32_t stg,
+                                            const float* cst, int QC, int r0,
+                                            int lane, double (&sums)[2][2]) {
+  using namespace sm90;
+  const int t4 = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    uint32_t off[4][2], xr[4][2];
+    float2 mu2[4], inv2[4], ga2[4], be2[4], gi2[4];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int j = 4 * h + jj;  // the 8-column group
+      const int col = 8 * j + 2 * t4;
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        off[jj][hr] = swz(r0 + 8 * hr, j) + 4 * t4;
+        if (BN) xr[jj][hr] = lds32(xt + off[jj][hr]);
+      }
+      if (BN) {
+        mu2[jj] = *reinterpret_cast<const float2*>(cst + col);
+        inv2[jj] = *reinterpret_cast<const float2*>(cst + QC + col);
+        gi2[jj] = *reinterpret_cast<const float2*>(cst + 4 * QC + col);
+        if (RELU) {
+          ga2[jj] = *reinterpret_cast<const float2*>(cst + 2 * QC + col);
+          be2[jj] = *reinterpret_cast<const float2*>(cst + 3 * QC + col);
+        }
+      }
+    }
+    double vs[8], vq[8];
+    uint32_t out[4][2];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int i = base + 4 * (4 * h + jj) + 2 * hr;
+        float o0 = acc[i], o1 = acc[i + 1];
+        if (BN) {
+          const float2 xv = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&xr[jj][hr]));
+          const float xh0 = __fmul_rn(__fsub_rn(xv.x, mu2[jj].x), inv2[jj].x);
+          const float xh1 = __fmul_rn(__fsub_rn(xv.y, mu2[jj].y), inv2[jj].y);
+          if (RELU) {
+            o0 = __fadd_rn(__fmul_rn(xh0, ga2[jj].x), be2[jj].x) > 0.f ? o0
+                                                                       : 0.f;
+            o1 = __fadd_rn(__fmul_rn(xh1, ga2[jj].y), be2[jj].y) > 0.f ? o1
+                                                                       : 0.f;
+          }
+          const double d0 = o0, d1 = o1;  // dz
+          const double e0 = xh0, e1 = xh1;
+          vs[2 * jj] = hr ? vs[2 * jj] + d0 : d0;
+          vs[2 * jj + 1] = hr ? vs[2 * jj + 1] + d1 : d1;
+          vq[2 * jj] = hr ? __fma_rn(d0, e0, vq[2 * jj]) : d0 * e0;
+          vq[2 * jj + 1] = hr ? __fma_rn(d1, e1, vq[2 * jj + 1]) : d1 * e1;
+          o0 = __fmul_rn(o0, gi2[jj].x);
+          o1 = __fmul_rn(o1, gi2[jj].y);
+        }
+        out[jj][hr] = pack_bf16(o0, o1);
+      }
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) sts32(stg + off[jj][hr], out[jj][hr]);
+    if (BN) {
+      sums[0][h] = rowsum(vs, lane);
+      sums[1][h] = rowsum(vq, lane);
+    }
+  }
+}
+
+// dx_block_of for the run's bn and relu, chosen once a block.
+template <int N>
+__device__ __forceinline__ void dx_block(const float (&acc)[N], int base,
+                                         uint32_t xt, uint32_t stg,
+                                         const float* cst, int QC, int r0,
+                                         int lane, bool bn, bool relu,
+                                         double (&sums)[2][2]) {
+  if (!bn)
+    dx_block_of<false, false>(acc, base, xt, stg, cst, QC, r0, lane, sums);
+  else if (relu)
+    dx_block_of<true, true>(acc, base, xt, stg, cst, QC, r0, lane, sums);
+  else
+    dx_block_of<true, false>(acc, base, xt, stg, cst, QC, r0, lane, sums);
+}
+
+// A block's row of the (2, splits, Q) partial of its column sums, from each
+// warp's running totals: lane (g, t4) of each of the 8 warps holds two
+// columns j = 0, 1 of each 64-column block nb (dx's 32 j + 8 (g / 2) + 2 t4
+// + g % 2, rowsum's order; else 2 lane + j). Added over the warps in order
+// through shared memory at fin (2 x 8 x 64 NB doubles), by the nthreads
+// threads of those warps (named barrier 1).
+template <bool DX, int NB>
+__device__ __forceinline__ void block_sums(const double (&tot)[2][NB][2],
+                                           double* fin, double* part,
+                                           int splits, int split, int Q,
+                                           int q0, int nthreads) {
+  constexpr int QC = 64 * NB;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  sm90::bar_sync(1, nthreads);
+#pragma unroll
+  for (int which = 0; which < 2; ++which)
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        fin[(which * 8 + warp) * QC + nb * 64 +
+            (DX ? 32 * j + 8 * (g >> 1) + 2 * t4 + (g & 1) : 2 * lane + j)] =
+            tot[which][nb][j];
+  sm90::bar_sync(1, nthreads);
+  for (int e = tid; e < 2 * QC; e += nthreads) {
+    const int which = e / QC, col = e - which * QC;
+    double t = 0.0;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) t += fin[(which * 8 + w) * QC + col];
+    if (q0 + col < Q)
+      part[(static_cast<long long>(which) * splits + split) * Q + q0 + col] =
+          t;
   }
 }
 

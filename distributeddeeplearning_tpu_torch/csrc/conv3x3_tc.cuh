@@ -1,11 +1,12 @@
 // Tensor-core bodies of the bf16 3x3 convolution kernels (stride 1, pad 1)
-// for Hopper (sm_90a): the forward #11 (fcbn_fwd_tc_kernel) and the weight
-// gradient #13 (fcbn_bwd_dw_tc_kernel) of fused_conv_bn.cu, on the wgmma
-// building blocks of sm90.cuh. fused_conv_bn.cu's note gives what they
-// compute, what bounds them and why the design is this one; this header
-// holds the pieces, so that the dx kernel (#12, the forward's product with
-// dY and flip(w)^T) can move onto them. bn1's prologue, dY's terms and the
-// host's tensor maps live in bn_tc.cuh, shared with the 1x1 dw (#10).
+// for Hopper (sm_90a): the forward #11 (fcbn_fwd_tc_kernel), the input
+// gradient #12 (fcbn_bwd_dx_tc_kernel, the forward's product with dY and
+// flip(w)^T) and the weight gradient #13 (fcbn_bwd_dw_tc_kernel) of
+// fused_conv_bn.cu, on the wgmma building blocks of sm90.cuh.
+// fused_conv_bn.cu's note gives what they compute, what bounds them and
+// why the design is this one. bn1's prologue, dY's terms, dx's epilogue
+// and the host's tensor maps live in bn_tc.cuh, shared with the 1x1
+// kernels (#8-#10).
 //
 // The halo slab. A tile of T output pixels p0 .. p0 + T - 1 (rows of the
 // (M, C) channels-last matrix) reads, through its nine taps, the rows
@@ -18,8 +19,8 @@
 // + (ty - 1) W - 1, rowstep apart. Runs are copied by TMA in boxes of BOXR
 // rows (so a slab may hold a few rows more than it needs). A tap leaves
 // the image where its pixel's (h + ty - 1, w + tx - 1) does; rows outside
-// [0, M) arrive as zeros, but prologue(0) != 0, so the product masks such
-// taps itself: tap_mask gives each pixel's nine in-image bits, computed
+// [0, M) arrive as zeros, but prologue(0) != 0 (and dY(0) = ds != 0), so
+// the product masks such taps itself: tap_mask gives each pixel's nine in-image bits, computed
 // once per tile.
 //
 // Loads. Every tile (slab runs, weight tiles, dy and y) is copied by TMA:
@@ -65,7 +66,8 @@ constexpr int FWD_THREADS = 256;  // two warpgroups
 constexpr int DW_THREADS = 384;   // three: one per tap row
 constexpr int DW_T = 128;         // dw: pixels a tile
 constexpr int RED_BYTES = 8 * 2 * 64 * 8;  // forward: per-warp column sums
-constexpr int BAR_BYTES = 64;     // mbarriers: 2 slab stages, NBUF weights
+constexpr int BAR_BYTES = 64;     // mbarriers: 2 slab stages, NBUF weights,
+                                  // dx's x tile
 constexpr int SMEM_LIMIT = 232448;
 
 struct Slab {
@@ -178,14 +180,16 @@ __host__ inline int fwd_smem(int NB, bool res, int slab_bytes) {
 }
 
 // The products of NT consecutive taps (from tap0) for one warpgroup:
-// acc[mt][nb] += A . B^T, A the warpgroup's 64 MT rows of the slab shifted
-// by the tap, taken by ldmatrix and masked per row, B the tap's K-major
-// weight tile (NB blocks of 64 output channels; tap tap0 + i at bt + i
-// tiles). One software pipeline: batch b + 1's fragments load while batch
-// b's products run, two register buffers taking turns, each pinned until
-// the products that read it are done. A batch is KSB 16-channel steps, so
-// a buffer holds 4 MT KSB registers (KSB 1 where MT NB = 4).
-template <int MT, int NB, int NT>
+// acc[mt][nb] += A . B, A the warpgroup's 64 MT rows of the slab shifted
+// by the tap, taken by ldmatrix and masked per row, B the tap's weight
+// tile: NB blocks of 64 output channels, each 64 x 64 (tap tap0 + i at bt +
+// i tiles), K-major (TRANS 0: the forward's w rows, one an output channel)
+// or MN-major (TRANS 1: dx's, one a contracted channel). One software
+// pipeline: batch b + 1's fragments load while batch b's products run, two
+// register buffers taking turns, each pinned until the products that read
+// it are done. A batch is KSB 16-channel steps, so a buffer holds 4 MT KSB
+// registers (KSB 1 where MT NB = 4).
+template <int MT, int NB, int NT, int TRANS = 0>
 __device__ __forceinline__ void fwd_taps(float (&acc)[MT][NB][32],
                                          uint32_t slab, uint32_t bt,
                                          int row0, int rowstep,
@@ -235,9 +239,12 @@ __device__ __forceinline__ void fwd_taps(float (&acc)[MT][NB][32],
       for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
         for (int nb = 0; nb < NB; ++nb)
-          mma_rs<0>(acc[mt][nb], fa[b & 1][u][mt][0], fa[b & 1][u][mt][1],
-                    fa[b & 1][u][mt][2], fa[b & 1][u][mt][3],
-                    desc_k<64>(bt + (i * NB + nb) * 64 * ROW, kb + u), 1);
+          mma_rs<TRANS>(
+              acc[mt][nb], fa[b & 1][u][mt][0], fa[b & 1][u][mt][1],
+              fa[b & 1][u][mt][2], fa[b & 1][u][mt][3],
+              TRANS ? desc_mn<64>(bt + (i * NB + nb) * 64 * ROW, kb + u, 0)
+                    : desc_k<64>(bt + (i * NB + nb) * 64 * ROW, kb + u),
+              1);
     wgmma_commit();
     wgmma_wait<1>();  // batch b - 1 is done: its buffer may be refilled
     pin(fa[(b + 1) & 1]);
@@ -469,6 +476,260 @@ fcbn_fwd_tc_kernel(const FwdArgs a, const __grid_constant__ CUtensorMap xmap,
                n] = total[nb];
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// #12: da = conv3x3(dY, flip(w)^T); with bn, dx, dbeta and dgamma through
+// bn1's prologue
+// ---------------------------------------------------------------------------
+
+constexpr int DX_T = 128;  // dx: pixels a tile, 64 a warpgroup
+
+struct DxArgs {
+  const float* mu;  // bn1's vectors over Cin: the epilogue's mask and scale
+  const float* inv;
+  const float* gamma;
+  const float* beta;
+  const float* ds;  // dY's terms over Cout
+  const float* dss;
+  double* part;  // (2, splits, Cin): dbeta, dgamma
+  long long M;
+  int H, W, Cin, Cout;
+  FastDiv divH, divW;
+  int nc;      // 64-channel chunks of Cout
+  int per;     // pixel tiles a block
+  int splits;  // blocks along M
+  int bn, relu;
+  int stages;  // slab stages: 2, or 1 where two do not fit
+  Slab slab;
+  int slab_bytes;  // one slab (of dy or of y), a multiple of 1024
+};
+
+// Shared memory of dx's (NB, RES) instance: the weight tiles (the nine of
+// the one chunk, or a ring), `stages` stages of a dy slab (dY once formed)
+// and a y slab, whose two slabs also stage the epilogue's output blocks,
+// x's tile (NB blocks of DX_T x 64), the epilogue's constants and the
+// mbarriers, plus slack to align to 1024.
+__host__ inline int dx_smem(int NB, bool res, int stages, int slab_bytes) {
+  return 1024 + (res ? 9 : NBUF) * NB * 64 * ROW + stages * 2 * slab_bytes +
+         NB * DX_T * ROW + bntc::NCONST * 64 * NB * 4 + BAR_BYTES;
+}
+
+// Block (blockIdx.x: run of pixel tiles, blockIdx.y: NB * 64 input
+// channels from c0) of dx: the forward's implicit GEMM with dY for a and
+// flip(w)^T for w. Two warpgroups own 64 rows each of a DX_T-pixel tile.
+// Steps run over (tile, 64-channel chunk kc of Cout, tap). A chunk's dy and
+// y slabs arrive by TMA into one stage, and dY = dy + ds + 2 y dss is
+// formed once, rounded to bf16, in place of dy (rows outside [0, M) take
+// ds, but every tap that reads them is masked). Tap t's B is w[n][8 - t][c]
+// over the chunk's n: per 64-column block one TMA box of 64 c x 64 n, read
+// MN-major (its rows are the contracted n), resident (RES: Cin, Cout <= 64,
+// all nine loaded once) or streamed LA steps ahead through an NBUF ring.
+// The next chunk's slabs load into the other stage at this chunk's first
+// tap (with one stage, at the next chunk's, once this one's readers are
+// done), and x's tile of the block's columns at each tile's first. The
+// epilogue (bn_tc.cuh's dx_block) stages block nb of dx in slab nb of the
+// free stage, out by TMA store, and runs each warp's dbeta and dgamma on in
+// registers over the block's tiles. dymap, ymap: dy and y as (M, Cout),
+// boxes of 64 channels x BOXR rows; wmap: w as (Cout, 9, Cin), boxes of 64
+// channels x 1 tap x 64 rows; xmap, dxmap: x and dx as (M, Cin), boxes of
+// 64 channels x DX_T rows.
+template <int NB, bool RES>
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+fcbn_bwd_dx_tc_kernel(const DxArgs a,
+                      const __grid_constant__ CUtensorMap dymap,
+                      const __grid_constant__ CUtensorMap ymap,
+                      const __grid_constant__ CUtensorMap wmap,
+                      const __grid_constant__ CUtensorMap xmap,
+                      const __grid_constant__ CUtensorMap dxmap) {
+  using namespace sm90;
+  constexpr int T = DX_T;
+  constexpr int QC = 64 * NB;
+  constexpr uint32_t BT = 64 * ROW;  // one 64 x 64 weight box
+  constexpr uint32_t BS = NB * BT;   // the weight tile of one step
+  constexpr uint32_t TB = T * ROW;   // one 64-channel block of a tile
+  constexpr int BSLOTS = RES ? 9 : NBUF;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t sb = (raw + 1023u) & ~1023u;
+  const uint32_t stage_bytes = 2 * a.slab_bytes;
+  const uint32_t ss = sb + BSLOTS * BS;
+  const uint32_t sx = ss + a.stages * stage_bytes;
+  const uint32_t sconst = sx + NB * TB;
+  // mbarriers: slab stages 0, 1; weight slots; x's tile.
+  const uint32_t sbar = sconst + bntc::NCONST * QC * 4;
+  const uint32_t xbar = sbar + 8 * (2 + NBUF);
+  float* cst = reinterpret_cast<float*>(smem_raw + (sconst - raw));
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int row0 = (tid >> 7) * 64 + (warp & 3) * 16;  // the warp's rows
+  const int r0 = row0 + (lane >> 2);  // the thread's: r0 and r0 + 8
+  const int c0 = blockIdx.y * QC;
+  const int split = blockIdx.x;
+  const long long tiles = (a.M + T - 1) / T;
+  const long long tb = static_cast<long long>(split) * a.per;
+  const long long te = tb + a.per < tiles ? tb + a.per : tiles;
+  const int nc = a.nc, S = a.stages;
+  const int chunks = te > tb ? static_cast<int>(te - tb) * nc : 0;
+  const int steps = chunks * 9;
+  const bool bn = a.bn != 0, relu = a.relu != 0;
+
+  // Issued by warp 0: load_w by lane 0, load_chunk by the whole warp.
+  auto load_w = [&](int slot, int kc, int tap, uint32_t bar) {
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+      tma_load_3d(sb + slot * BS + nb * BT, &wmap, c0 + 64 * nb, 8 - tap,
+                  kc * 64, bar);
+  };
+  auto load_chunk = [&](int q) {  // the block's chunk q, into stage q % S
+    const int stage = q % S, kc = q % nc;
+    const long long p0 = (tb + q / nc) * T;
+    const uint32_t dst = ss + stage * stage_bytes, bar = sbar + 8 * stage;
+    if (lane == 0) mbar_expect_tx(bar, 2 * a.slab.rows * ROW);
+    __syncwarp();
+    load_slab(dst, &dymap, kc * 64, a.slab, p0, a.W, bar, lane);
+    load_slab(dst + a.slab_bytes, &ymap, kc * 64, a.slab, p0, a.W, bar,
+              lane);
+  };
+
+  if (tid == 0) {
+    prefetch_tensormap(&dymap);
+    prefetch_tensormap(&ymap);
+    prefetch_tensormap(&wmap);
+    prefetch_tensormap(&dxmap);
+    if (bn) prefetch_tensormap(&xmap);
+    for (int i = 0; i < 3 + NBUF; ++i) mbar_init(sbar + 8 * i, 1);
+    fence_mbar_init();
+  }
+  if (bn)
+    bntc::load_dx_consts(cst, a.mu, a.inv, a.gamma, a.beta, c0, a.Cin, QC,
+                         tid, FWD_THREADS);
+  __syncthreads();
+  // With two stages the first chunk's slabs; the weight tiles of steps 0
+  // .. LA - 1 (all nine, on the first weight barrier, when resident).
+  if (warp == 0 && S == 2 && chunks > 0) load_chunk(0);
+  if (tid == 0 && steps > 0) {
+    if (RES) {
+      mbar_expect_tx(sbar + 16, 9 * BS);
+      for (int t = 0; t < 9; ++t) load_w(t, 0, t, sbar + 16);
+    } else {
+      for (int s = 0; s < LA && s < steps; ++s) {
+        mbar_expect_tx(sbar + 16 + 8 * s, BS);
+        load_w(s, 0, s, sbar + 16 + 8 * s);
+      }
+    }
+  }
+  // The step whose weight tile loads next: (chunk l_kc, tap l_tap).
+  int l_kc = 0, l_tap = LA;
+
+  double tot[2][NB][2];
+#pragma unroll
+  for (int w = 0; w < 2; ++w)
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) tot[w][nb][0] = tot[w][nb][1] = 0.0;
+  DyTerms dyt;
+  uint32_t vm[1][2];
+  float acc[1][NB][32];
+  int q = 0;  // the block's chunk index
+  for (long long tile = tb; tile < te; ++tile) {
+    const long long p0 = tile * T;
+    const int it = static_cast<int>(tile - tb);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      vm[0][h] = tap_mask(p0 + r0 + 8 * h, a.M, a.divH, a.divW);
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[0][nb][i] = 0.f;
+    uint32_t slab = 0;
+    for (int kc = 0; kc < nc; ++kc, ++q) {
+      const int stage = S == 2 ? (q & 1) : 0;
+      slab = ss + stage * stage_bytes;
+      if (nc > 1 || q == 0)
+        dyt.load(a.ds, a.dss, kc * 64 + 8 * (tid & 7), a.Cout);
+      for (int tap = 0; tap < 9; ++tap) {
+        const int j = q * 9 + tap;
+        if (!RES || tap == 0) {
+          // Every reader of step j - 1 is done: its weight slot and, at
+          // tap 0, the stage that chunk q + S - 1 takes (chunk q - 1's,
+          // whose slabs staged the last epilogue's dx: tid 0 waits for
+          // those stores to have read them) and x's tile may be refilled.
+          if (tap == 0 && tid == 0) bulk_wait_read<0>();
+          fence_async_shared();
+          __syncthreads();
+          if (tid == 0 && !RES && j + LA < steps) {
+            const uint32_t bar = sbar + 16 + 8 * ((j + LA) % NBUF);
+            mbar_expect_tx(bar, BS);
+            load_w((j + LA) % NBUF, l_kc, l_tap, bar);
+          }
+          if (tap == 0) {
+            if (warp == 0 && q + S - 1 < chunks) load_chunk(q + S - 1);
+            if (tid == 0 && bn && kc == 0) {
+              mbar_expect_tx(xbar, NB * TB);
+#pragma unroll
+              for (int nb = 0; nb < NB; ++nb)
+                tma_load_2d(sx + nb * TB, &xmap, c0 + 64 * nb,
+                            static_cast<int>(p0), xbar);
+            }
+          }
+          if (!RES && ++l_tap == 9) {
+            l_tap = 0;
+            if (++l_kc == nc) l_kc = 0;
+          }
+        }
+        if (tap == 0) {
+          mbar_wait(sbar + 8 * stage, (q / S) & 1);
+          bntc::apply_dy(slab, slab + a.slab_bytes, a.slab.rows, dyt, tid,
+                         FWD_THREADS);
+          __syncthreads();
+        }
+        if (RES) {
+          if (j == 0) mbar_wait(sbar + 16, 0);
+          fwd_taps<1, NB, 9, 1>(acc, slab, sb, row0, a.slab.rowstep, vm, 0,
+                                lane);
+          break;  // the nine taps of the chunk in one pipeline
+        }
+        mbar_wait(sbar + 16 + 8 * (j % NBUF), (j / NBUF) & 1);
+        fwd_taps<1, NB, 1, 1>(acc, slab, sb + (j % NBUF) * BS, row0,
+                              a.slab.rowstep, vm, tap, lane);
+      }
+    }
+
+    // Epilogue: every product of the tile is done, so the stage is free.
+    // Block nb of dx (masked, scaled and summed with bn) rounded to bf16
+    // into the stage's slab nb, out by TMA store (rows past M and columns
+    // past Cin are not written); x's tile has landed by now.
+    __syncthreads();
+    if (bn) mbar_wait(xbar, it & 1);
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      double sums[2][2];
+      bntc::dx_block(acc[0][nb], 0, sx + nb * TB, slab + nb * a.slab_bytes,
+                     cst + nb * 64, QC, r0, lane, bn, relu, sums);
+      if (bn)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          tot[0][nb][h] += sums[0][h];
+          tot[1][nb][h] += sums[1][h];
+        }
+    }
+    fence_async_shared();
+    __syncthreads();
+    if (tid == 0) {
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+        tma_store_2d(&dxmap, slab + nb * a.slab_bytes, c0 + 64 * nb,
+                     static_cast<int>(p0));
+      bulk_commit();
+    }
+  }
+  if (tid == 0) bulk_wait<0>();
+  // Every copy into the stages has landed and been read, every store has
+  // completed: stage 0 holds the warps' sums.
+  if (bn)
+    bntc::block_sums<true, NB>(
+        tot, reinterpret_cast<double*>(smem_raw + (ss - raw)), a.part,
+        a.splits, split, a.Cin, c0, FWD_THREADS);
 }
 
 // ---------------------------------------------------------------------------

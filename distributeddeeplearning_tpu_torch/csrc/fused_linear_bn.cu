@@ -35,8 +35,7 @@
 //   contracted axis is M), transformed elementwise on the way (the
 //   BatchNorm prologue, or dY) and stored in shared memory. The tile
 //   product and the three kernels' bodies live in bn_gemm.cuh, shared with
-//   the 3x3 kernels of fused_conv_bn.cu (whose bf16 dx still runs its
-//   mma.sync engine).
+//   the f32 3x3 kernels of fused_conv_bn.cu.
 // - bf16 forward and dx (flbn_fwd_tc_kernel, flbn_bwd_dx_tc_kernel, one
 //   body, rows_body): out = A . B, A the (M, R) rows transformed (bn's
 //   prologue over x, or dY over dy), B the weight read K-major (forward)
@@ -61,7 +60,8 @@
 //   clips rows past M and columns past the output. dx with bn reads x's
 //   tile of its output columns (copied by TMA during the products) and
 //   the per-channel constants from shared memory for the mask, the scale
-//   and the sums.
+//   and the sums (bn_tc.cuh's dx_block and block_sums, shared with the
+//   3x3 dx).
 // - bf16 dw (flbn_bwd_dw_tc_kernel) runs on wgmma too, as the 3x3 dw
 //   of conv3x3_tc.cuh with one tap and no halo. It is bound by its bytes
 //   wherever K or N is 64 (stage 1: 2 * 64 to 2 * 256 flops for each of its
@@ -659,7 +659,7 @@ constexpr int SMEM_LIMIT = 232448;
 constexpr int RES_MAX = 64 * 1024;       // a resident weight slice at most
 constexpr int MAX_STAGES = 8;
 constexpr int NBAR = 2 * MAX_STAGES + 5;  // full, empty; weight; x full, empty
-constexpr int NCONST = 5;                // dx: mu, inv, gamma, beta, gamma inv
+using bntc::NCONST;                      // dx's epilogue constants
 
 struct RowArgs {
   const float* mu;     // bn's vectors over K: the forward's prologue, the
@@ -682,59 +682,6 @@ struct RowArgs {
   int xslots;          // dx with bn: x tiles held for the epilogue (1 or 2)
   int oslots;          // staging tiles of the output (1 or 2)
 };
-
-// The block's (2, splits, Q) partial from each warp's running sums: lane
-// (g, t4) of every warp holds two columns of each 64-column block nb, j =
-// 0, 1: the forward's 2 lane + j (its rows warp + 8 k), dx's 32 j + 8 (g /
-// 2) + 2 t4 + g % 2 (rowsum's order, over the warp's accumulator rows).
-// Added over the 8 warps in order, through shared memory at `fin` (2 x 8
-// x QC doubles).
-template <bool DX, int NB>
-__device__ __forceinline__ void write_sums(const RowArgs& a,
-                                           const double (&tot)[2][NB][2],
-                                           double* fin, int q0) {
-  constexpr int QC = 64 * NB;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-  sm90::bar_sync(1, CONSUMERS);
-#pragma unroll
-  for (int which = 0; which < 2; ++which)
-#pragma unroll
-    for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        fin[(which * 8 + warp) * QC + nb * 64 +
-            (DX ? 32 * j + 8 * (g >> 1) + 2 * t4 + (g & 1) : 2 * lane + j)] =
-            tot[which][nb][j];
-  sm90::bar_sync(1, CONSUMERS);
-  for (int e = tid; e < 2 * QC; e += CONSUMERS) {
-    const int which = e / QC, col = e - which * QC;
-    double t = 0.0;
-#pragma unroll
-    for (int w = 0; w < 8; ++w) t += fin[(which * 8 + w) * QC + col];
-    if (q0 + col < a.Q)
-      a.part[(static_cast<long long>(which) * a.splits + blockIdx.x) * a.Q +
-             q0 + col] = t;
-  }
-}
-
-// v[u] (u < 8: the lane's 8 columns of one half of a 64-column block, each
-// summed over the lane's two rows) summed over the 8 lanes g that share t4,
-// a reduce-scatter in a fixed order: lane g ends with column u = g.
-__device__ __forceinline__ double rowsum(double (&v)[8], int lane) {
-#pragma unroll
-  for (int level = 0; level < 3; ++level) {
-    const int half = 4 >> level, mask = 16 >> level;
-    const bool up = (lane & mask) != 0;
-#pragma unroll
-    for (int u = 0; u < half; ++u) {
-      const double send = up ? v[u] : v[u + half];
-      const double keep = up ? v[u + half] : v[u];
-      v[u] = keep + __shfl_xor_sync(0xFFFFFFFFu, send, mask);
-    }
-  }
-  return v[0];
-}
 
 // Block (blockIdx.x: run of pixel tiles, blockIdx.y: QC = 64 NB output
 // channels from q0) of the forward (DX false: out = a w^T, a x with bn's
@@ -812,18 +759,10 @@ __device__ __forceinline__ void rows_body(const RowArgs& a,
     fence_mbar_init();
   }
   // dx's epilogue constants of the block's output columns.
-  if (xtile) {
-    float* c = reinterpret_cast<float*>(smem_raw + (sconst - raw));
-    for (int i = tid; i < QC; i += TC_THREADS) {
-      const int k = q0 + i;
-      const bool ok = k < a.Q;
-      c[i] = ok ? a.mu[k] : 0.f;
-      c[QC + i] = ok ? a.inv[k] : 0.f;
-      c[2 * QC + i] = ok ? a.gamma[k] : 0.f;
-      c[3 * QC + i] = ok ? a.beta[k] : 0.f;
-      c[4 * QC + i] = ok ? __fmul_rn(a.gamma[k], a.inv[k]) : 0.f;
-    }
-  }
+  if (xtile)
+    bntc::load_dx_consts(reinterpret_cast<float*>(smem_raw + (sconst - raw)),
+                         a.mu, a.inv, a.gamma, a.beta, q0, a.Q, QC, tid,
+                         TC_THREADS);
   __syncthreads();
 
   if (tid >= CONSUMERS) {  // the producer
@@ -974,56 +913,15 @@ __device__ __forceinline__ void rows_body(const RowArgs& a,
           sts32(stg + swz(r0 + 8 * ((i >> 1) & 1), i >> 2) + 4 * t4,
                 pack_bf16(acc[32 * nb + i], acc[32 * nb + i + 1]));
       } else {  // dx = da, or dz (gamma inv) with bn, and dz's sums
+        double sums[2][2];
+        bntc::dx_block(acc, 32 * nb, xt + nb * TB, stg, cst + nb * 64, QC,
+                       r0, lane, bn, relu, sums);
+        if (bn)
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          double vs[8], vq[8];
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj) {
-            const int j = 4 * h + jj;  // the 8-column group
-            const int col = nb * 64 + 8 * j + 2 * t4;
-            float2 mu2{}, inv2{}, ga2{}, be2{}, gi2{};
-            if (bn) {
-              mu2 = *reinterpret_cast<const float2*>(cst + col);
-              inv2 = *reinterpret_cast<const float2*>(cst + QC + col);
-              ga2 = *reinterpret_cast<const float2*>(cst + 2 * QC + col);
-              be2 = *reinterpret_cast<const float2*>(cst + 3 * QC + col);
-              gi2 = *reinterpret_cast<const float2*>(cst + 4 * QC + col);
-            }
-#pragma unroll
-            for (int hr = 0; hr < 2; ++hr) {
-              const int i = 4 * j + 2 * hr;
-              const uint32_t off = swz(r0 + 8 * hr, j) + 4 * t4;
-              float o0 = acc[32 * nb + i], o1 = acc[32 * nb + i + 1];
-              if (bn) {
-                const uint32_t xr = lds32(xt + nb * TB + off);
-                const float2 xv = __bfloat1622float2(
-                    *reinterpret_cast<const __nv_bfloat162*>(&xr));
-                const float xh0 = __fmul_rn(__fsub_rn(xv.x, mu2.x), inv2.x);
-                const float xh1 = __fmul_rn(__fsub_rn(xv.y, mu2.y), inv2.y);
-                if (relu) {
-                  o0 = __fadd_rn(__fmul_rn(xh0, ga2.x), be2.x) > 0.f ? o0
-                                                                     : 0.f;
-                  o1 = __fadd_rn(__fmul_rn(xh1, ga2.y), be2.y) > 0.f ? o1
-                                                                     : 0.f;
-                }
-                const double d0 = o0, d1 = o1;  // dz
-                const double e0 = xh0, e1 = xh1;
-                vs[2 * jj] = hr ? vs[2 * jj] + d0 : d0;
-                vs[2 * jj + 1] = hr ? vs[2 * jj + 1] + d1 : d1;
-                vq[2 * jj] = hr ? __fma_rn(d0, e0, vq[2 * jj]) : d0 * e0;
-                vq[2 * jj + 1] =
-                    hr ? __fma_rn(d1, e1, vq[2 * jj + 1]) : d1 * e1;
-                o0 = __fmul_rn(o0, gi2.x);
-                o1 = __fmul_rn(o1, gi2.y);
-              }
-              sts32(stg + off, pack_bf16(o0, o1));
-            }
+          for (int h = 0; h < 2; ++h) {
+            tot[0][nb][h] += sums[0][h];
+            tot[1][nb][h] += sums[1][h];
           }
-          if (bn) {
-            tot[0][nb][h] += rowsum(vs, lane);
-            tot[1][nb][h] += rowsum(vq, lane);
-          }
-        }
       }
       // The slot is written; with two slots the other one's store has read
       // it, so the next block may take it.
@@ -1063,8 +961,9 @@ __device__ __forceinline__ void rows_body(const RowArgs& a,
   if (tid == 0) bulk_wait<0>();
   // The ring is idle now: every copy into it has landed and been read.
   if (sums)
-    write_sums<DX, NB>(a, tot,
-                       reinterpret_cast<double*>(smem_raw + (ring - raw)), q0);
+    bntc::block_sums<DX, NB>(
+        tot, reinterpret_cast<double*>(smem_raw + (ring - raw)), a.part,
+        a.splits, split, a.Q, q0, CONSUMERS);
 }
 
 template <int NB, bool RES>

@@ -16,14 +16,14 @@ what the design does about it):
   through the prologue;
 - ``_bwd_dw_kernel`` -> :func:`conv3x3_bn_bwd_dw`: dw = patches(a)^T @ dY.
 
-In bf16 the forward and dw run on the tensor cores (wgmma, with TMA
-copies, ``csrc/conv3x3_tc.cuh``): each block applies bn1's prologue once to
-a halo slab of its pixel tile in shared memory and reads the nine taps as
-row shifts of it, in registers; both kernels size their grids by the card's
-SM count (:func:`fwd_run_rows`, :func:`dw_splits`). dx, and every float32
-instance, run the mma.sync / FMA implicit GEMM of ``csrc/bn_gemm.cuh``. The
-tensor-core kernels take every shape the wrappers accept, so nothing is
-routed elsewhere.
+In bf16 all three run on the tensor cores (wgmma, with TMA copies,
+``csrc/conv3x3_tc.cuh``): each block transforms a halo slab of its pixel
+tile once in shared memory (bn1's prologue over x, or dY over dy) and reads
+the nine taps as row shifts of it, in registers; the kernels size their
+grids by the card's SM count (:func:`fwd_run_rows`,
+:func:`bwd_dx_run_rows`, :func:`dw_splits`). Every float32 instance runs the
+FMA implicit GEMM of ``csrc/bn_gemm.cuh``. The tensor-core kernels take
+every shape the wrappers accept, so nothing is routed elsewhere.
 
 The plain versions repeat the Pallas kernels' rounding points: a is rounded
 to x's dtype before the product, y is stored in x's dtype and the sums are
@@ -261,6 +261,16 @@ def conv3x3_bn_fwd_cuda(x, mu, inv, gamma, beta, w, *, relu: bool,
     return y, s, ss
 
 
+def bwd_dx_run_rows(m: int, w: int, cin: int, cout: int,
+                    dtype: torch.dtype) -> int:
+    """The pixels of one block's run in kernel #12 at this shape (image
+    width ``w``): block s sums dbeta and dgamma over pixels [s * run, (s +
+    1) * run) into its own partial, and the partials are summed in order.
+    Depends on the current card's SM count for bf16."""
+    return _fn("fcbn_bwd_dx_run_rows", (_L, _I, _I, _I, _I), _L)(
+        m, w, cin, cout, _DTYPES[dtype])
+
+
 def conv3x3_bn_bwd_dx_cuda(dy, y, ds, dss, w, x, mu, inv, gamma, beta, *,
                            relu: bool, bn: bool):
     """Launch kernel #12: (dx, dbeta, dgamma) as
@@ -269,12 +279,12 @@ def conv3x3_bn_bwd_dx_cuda(dy, y, ds, dss, w, x, mu, inv, gamma, beta, *,
     b, h, wd, cin = x.shape
     cout, m = w.shape[0], b * h * wd
     wk = _ohwi(w)
-    splits = _fn("fcbn_row_splits", (_L, _I))(m, cin)
     dx = torch.empty_like(x)
-    work = torch.empty((2, splits, cin), dtype=torch.float64,
-                       device=x.device) if bn else None
     db, dg = (_f32(cin, x), _f32(cin, x)) if bn else (None, None)
     with torch.cuda.device(x.device):
+        splits = -(-m // bwd_dx_run_rows(m, wd, cin, cout, x.dtype))
+        work = torch.empty((2, splits, cin), dtype=torch.float64,
+                           device=x.device) if bn else None
         _run("fcbn_bwd_dx", (_P,) * 14 + (_L,) + (_I,) * 8,
              dy.data_ptr(), y.data_ptr(), ds.data_ptr(), dss.data_ptr(),
              wk.data_ptr(), x.data_ptr(), _ptr(mu), _ptr(inv), _ptr(gamma),

@@ -810,7 +810,11 @@ def _fcbn_inputs(device, dtype, b, h, w, cin, cout, seed):
                                             (6, 7, 7, 256, 136),
                                             (2, 9, 11, 72, 64),
                                             (2, 12, 10, 64, 8),
-                                            (1, 4, 300, 16, 24)])
+                                            (1, 4, 300, 16, 24),
+                                            (2, 28, 28, 64, 200),
+                                            (3, 14, 14, 192, 64),
+                                            (1, 5, 80, 96, 64),
+                                            (1, 3, 320, 96, 64)])
 def test_conv_bn_kernels_match_plain(cuda_device, monkeypatch, dtype,
                                      variant, b, h, w, cin, cout):
     """#11-#13 against their plain versions: W = 7 and odd sides (a row
@@ -821,8 +825,15 @@ def test_conv_bn_kernels_match_plain(cuda_device, monkeypatch, dtype,
     images), M a multiple of neither tile (980, 294), Cin = 72 (a second
     64-channel chunk of 8 channels), Cout = 8 (one 64-wide block of
     8), and an image wider than the tile (W = 300: the halo slab in three
-    segments). The plain versions' convolutions in full f32 (TF32 off), as
-    the kernels compute."""
+    segments). For the bf16 tensor-core dx's plans (dx_plan: 128-pixel
+    tiles; 64 or 128 input channels a block; weights resident or streamed;
+    two slab stages or one): resident at Cin, Cout <= 64 (stage 1's widths
+    among them), streamed 64 wide (64 -> 200: a Cout chunk of 8) and 128
+    wide (Cin > 64; 192 -> 64 with a last block of 64), 64 wide for lack
+    of room (96 -> 64 at W = 80: a 320-row slab) and one stage (W = 300 and
+    W = 320, slabs of three runs, the latter in two 64-wide blocks); M a
+    multiple of no tile. The plain versions' convolutions in full f32 (TF32
+    off), as the kernels compute."""
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     bn, relu = FLBN_VARIANTS[variant]
     x, wt, vecs, dy, y, ds, dss = _fcbn_inputs(cuda_device, dtype, b, h, w,
@@ -908,6 +919,58 @@ def test_conv_bn_sums_fail_without_one_run(cuda_device, monkeypatch, dtype,
         with pytest.raises(AssertionError):
             _sums_close((got.double() - lost.sum(dim=0)).float(), want, t,
                         f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w,cin,cout", [(16, 56, 56, 64, 64),
+                                            (8, 14, 14, 256, 256)])
+def test_conv_bn_dx_sums_fail_without_one_run(cuda_device, monkeypatch,
+                                              dtype, b, h, w, cin, cout):
+    """#12's dbeta and dgamma pass their limit, and sums that lack one
+    block's run of pixels (bwd_dx_run_rows: the middle block's, taken out
+    of the kernel's own sums) fail it."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    x, wt, vecs, dy, y, ds, dss = _fcbn_inputs(cuda_device, dtype, b, h, w,
+                                               cin, cout, 11)
+    mu, inv, gamma, beta = vecs
+    _, db, dg = tfc.conv3x3_bn_bwd_dx(dy, y, ds, dss, wt, x, *vecs,
+                                      relu=True, bn=True)
+    _, rdb, rdg = tfc.conv3x3_bn_bwd_dx_reference(dy, y, ds, dss, wt, x,
+                                                  *vecs, relu=True, bn=True)
+    xh = _rows((x.float() - mu) * inv)
+    da = _rows(tfc._conv(tfc._dy_total(dy, y, ds, dss),
+                         wt.flip(2, 3).transpose(0, 1)))
+    dz = torch.where(xh * gamma + beta > 0, da, 0.0)
+    m = b * h * w
+    run = tfc.bwd_dx_run_rows(m, w, cin, cout, dtype)
+    assert 0 < run < m
+    r0 = (-(-m // run) // 2) * run
+    rows = slice(r0, r0 + run)
+    for got, want, terms, lost in (
+            (db, rdb, dz.abs().sum(dim=0), dz[rows].double()),
+            (dg, rdg, (dz * xh).abs().sum(dim=0),
+             dz[rows].double() * xh[rows])):
+        _sums_close(got, want, terms)
+        with pytest.raises(AssertionError):
+            _sums_close((got.double() - lost.sum(dim=0)).float(), want,
+                        terms)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w,cin,cout", [(16, 56, 56, 64, 64),
+                                            (4, 14, 14, 256, 136)])
+def test_conv_bn_dx_repeats_bitwise(cuda_device, dtype, b, h, w, cin, cout):
+    """#12 at stage 1's widths (the bf16 weights resident) and at a
+    streamed shape (two 64-column blocks a block, a last Cout chunk of 8):
+    two runs give the same dx, dbeta and dgamma bit for bit."""
+    x, wt, vecs, dy, y, ds, dss = _fcbn_inputs(cuda_device, dtype, b, h, w,
+                                               cin, cout, 12)
+    runs = [tfc.conv3x3_bn_bwd_dx(dy, y, ds, dss, wt, x, *vecs, relu=True,
+                                  bn=True) for _ in range(2)]
+    for a, c in zip(*runs):
+        assert torch.equal(a, c)
 
 
 @pytest.mark.cuda
