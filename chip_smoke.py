@@ -85,7 +85,27 @@ Run from the root of a checkout. Phases:
    times, no other kernel of the port;
 17. one f32 step of ResNet-50 at batch 32 with ``fused_block``, with
    ``fused_block`` and ``fused_conv3``, and with neither, same weights and
-   batch, held as phase 12 (one f64 step serves both).
+   batch, held as phase 12 (one f64 step serves both);
+18. the DenseNet path: ``python -m distributeddeeplearning_tpu_torch.train
+   --config densenet121_dp --dp 1 --batch-size 256 --synthetic --precision
+   mixed --ema-decay 0.999 --eval-batches 2`` for a few steps (DenseNet-121
+   uncut, 224x224, 1000 classes, bf16 over f32 masters, dynamic loss
+   scaling, sgd as the preset sets it); its BatchNorm is plain, so no
+   kernel of the port may launch; every loss finite and the first near
+   ln(1000), ``loss_scale`` reported, ``eval_top1`` in [0, 1]; images/s,
+   peak memory and a device-time profile of one step;
+19. the large-batch ResNet path: ResNet-50 ``--fused-block --fused-conv3
+   --precision mixed --optimizer lars --ema-decay 0.999 --batch-ramp
+   256:3,512 --batch-size 512`` with checkpoints every 3 steps and one eval
+   batch, 6 steps; #8-#10 36 and #11-#13 13 launches a training step (the
+   eval forwards launch none), no other kernel; losses finite, at most one
+   loss-scale skip, each step's lr its stage's schedule; images/s a stage
+   and a device-time profile of one step at batch 512;
+20. one f32 step of ResNet-50 at batch 32 with loss scale 2^15 and without,
+   same weights and batch, with ``fused_bn`` and with ``fused_block`` +
+   ``fused_conv3``: the unscaled gradients and running buffers must equal
+   the unscaled step's bit for bit (or within 2^-20 of a tensor's largest
+   |ref|, each such tensor printed).
 
 Each phase prints its wall seconds. It prints a ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, "device": {...}}``. Any failed phase exits
@@ -223,6 +243,33 @@ RESNET_LINEAR_LAYERS = 36  # 16 blocks x (conv1, conv3), 4 downsamples
 # output one more ulp), the sums within FLBN_SUM_TOL of their sum of
 # |terms|.
 RESNET_CONV3_LAYERS = 13  # the 3x3s of the 13 stride-1 bottlenecks
+# DenseNet training path: DenseNet-121 at full width through the
+# densenet121_dp preset on one card, bf16 over f32 masters with dynamic loss
+# scaling, EMA and a held-out eval. Its BatchNorm is plain (the JAX DenseNet
+# has no fused path), so no kernel of the port may launch.
+DENSE_ARGV = ["--config", "densenet121_dp", "--dp", "1", "--batch-size",
+              "256", "--synthetic", "--precision", "mixed", "--ema-decay",
+              "0.999", "--eval-batches", "2", "--steps", str(RESNET_STEPS),
+              "--log-every", "1", "--seed", str(SEED)]
+# The large-batch ResNet path: --fused-block --fused-conv3 under mixed
+# precision, LARS, EMA and a two-stage batch ramp chained through
+# checkpoints, one held-out batch evaluated at the end of each stage. A
+# stage's timing skips its first step.
+RAMP_STAGE_STEPS = 3
+RAMP_FLAGS = ["--fused-block", "--fused-conv3", "--precision", "mixed",
+              "--optimizer", "lars", "--ema-decay", "0.999"]
+RAMP_ARGV = ["--model", "resnet50", *RAMP_FLAGS, "--batch-ramp",
+             f"{RESNET_BATCH // 2}:{RAMP_STAGE_STEPS},{RESNET_BATCH}",
+             "--batch-size", str(RESNET_BATCH), "--checkpoint-every",
+             str(RAMP_STAGE_STEPS), "--eval-batches", "1", "--steps",
+             str(2 * RAMP_STAGE_STEPS), "--synthetic", "--log-every", "1",
+             "--warmup-steps", "1", "--seed", str(SEED)]
+# Loss scale 2^15 against none, one f32 step at batch 32: every backward
+# kernel is linear in dy and a power-of-two scale is exact, so the
+# unscaled gradients and the running buffers should equal the unscaled
+# step's bit for bit; a tensor that does not may differ by at most this
+# share of its largest |ref|.
+SCALED_STEP_TOL = 2.0 ** -20
 
 
 def log(msg: str) -> None:
@@ -672,6 +719,8 @@ KERNEL_CLASSES = (
     ("conv_bn", FCBN_KERNELS),
     ("linear_bn", FLBN_KERNELS),
     ("bn", BN_KERNELS),
+    # torch.cat's copies (DenseNet's concatenations).
+    ("concat", ("catarraybatchedcopy",)),
     # cuDNN's convolutions (before "gemm": their names hold implicit_gemm).
     ("conv", ("conv", "fprop", "dgrad", "wgrad", "cudnn", "implicit")),
     ("gemm", ("gemm", "gemv", "cutlass", "xmma", "nvjet")),
@@ -720,6 +769,11 @@ def step_profile(label: str, step, *, grad: bool = False,
     by_name: dict[str, float] = {}
     count = 0
     for e in prof.events():
+        # The optimizer's record_function range is mirrored onto the device
+        # timeline as an annotation spanning its kernels: not a kernel.
+        if getattr(e, "is_user_annotation", False) or e.name.startswith(
+                "Optimizer."):
+            continue
         if e.device_type == torch.autograd.DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + \
                 e.time_range.elapsed_us()
@@ -2124,6 +2178,232 @@ def phase_conv_bn_grid(fcbn, failures) -> dict:
             "main": (*layers[0], layers[0][-1], True, True)}
 
 
+def cli_step_profile(argv, label, focus) -> dict:
+    """A device-time profile of one training step of the configuration the
+    training CLI builds from ``argv``, from the seeded state, and the peak
+    memory of that step."""
+    import torch
+
+    from distributeddeeplearning_tpu_torch.train import cli as train_cli
+    from distributeddeeplearning_tpu_torch.train import loop, steps
+
+    config = train_cli.build_config(train_cli.parse_args(argv))
+    state, sched = loop.build_state(config, torch.device("cuda"))
+    train_step = steps.make_train_step(config, sched)
+    batch = loop.make_source(config, state.model, "cuda").batch(0)
+    torch.cuda.reset_peak_memory_stats()
+    profile = step_profile(label, lambda: train_step(state, batch),
+                           grad=True, focus=focus)
+    profile["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del state, batch
+    torch.cuda.empty_cache()
+    return profile
+
+
+def split_lines(lines) -> tuple[list, list, dict]:
+    """A training CLI's output as (metric lines, eval lines, summary)."""
+    metrics = [x for x in lines if "step" in x and "loss" in x]
+    evals = [x for x in lines if "step" in x and "loss" not in x]
+    return metrics, evals, lines[-1].get("summary", {})
+
+
+def phase_densenet_train(kernels, failures) -> dict:
+    """Phase 18, the DenseNet path: DenseNet-121 at full width (224x224,
+    1000 classes, batch 256) through the ``densenet121_dp`` preset on one
+    card with ``--precision mixed --ema-decay 0.999 --eval-batches 2``.
+    Its BatchNorm is plain, so every counter of the port must stay 0;
+    every loss finite, the first within RESNET_FIRST_LOSS_TOL of ln 1000,
+    ``loss_scale`` reported, ``eval_top1`` in [0, 1]. Then images/s, peak
+    memory and a device-time profile of one step (cuDNN convolutions,
+    concatenation copies, the plain BatchNorm's elementwise and reduction
+    glue)."""
+    import torch
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    lines = run_train_cli(DENSE_ARGV)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = read_counts(kernels)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    metrics, evals, summary = split_lines(lines)
+    losses = [x["loss"] for x in metrics]
+    log(f"# densenet121 mixed train: CLI {cli_s:.2f} s, launches "
+        f"{launches}, losses {losses}, loss scales "
+        f"{[x.get('loss_scale') for x in metrics]}, peak memory "
+        f"{peak_gb:.2f} GB, summary {json.dumps(summary)}")
+    if any(launches.values()):
+        failures.append(f"DenseNet path launched kernels of the port: "
+                        f"{launches}")
+    if (len(losses) != RESNET_STEPS
+            or not all(np.isfinite(x) for x in losses)
+            or abs(losses[0] - np.log(RESNET_CLASSES))
+            > RESNET_FIRST_LOSS_TOL):
+        failures.append(f"DenseNet losses {losses}: need {RESNET_STEPS} "
+                        f"finite, the first within {RESNET_FIRST_LOSS_TOL} "
+                        f"of ln {RESNET_CLASSES}")
+    if not all("loss_scale" in x for x in metrics):
+        failures.append("DenseNet metric lines without loss_scale")
+    top1 = summary.get("eval_top1")
+    if top1 is None or not 0.0 <= top1 <= 1.0 or not summary.get(
+            "examples_per_sec"):
+        failures.append(f"DenseNet summary without eval_top1 in [0, 1] or "
+                        f"images/s: {summary}")
+    profile = cli_step_profile(
+        DENSE_ARGV, "densenet121 train step (bf16, mixed, EMA, batch 256)",
+        ("concat", ("CatArrayBatchedCopy",)))
+    return {"summary": summary, "peak_memory_gb": peak_gb,
+            "profile": profile, "losses": losses}
+
+
+def phase_large_batch(kernels, failures) -> dict:
+    """Phase 19, the large-batch ResNet path: ResNet-50 ``--fused-block
+    --fused-conv3 --precision mixed --optimizer lars --ema-decay 0.999``
+    with the ramp 256 x 3 steps, then 512 x 3, chained through a
+    checkpoint, one eval batch at the end of each stage. #8-#10 must launch
+    36 and #11-#13 13 times for each of the 6 training steps (a step the
+    scaler skips still runs its forward and backward); the eval forwards run
+    in eval mode, which is the plain composition and launches none; no
+    other kernel. Every loss finite, at most one loss-scale skip, and each
+    step's lr the port's schedule of its stage (the stage's batch over the
+    horizon of its end) at the update count. Then a device-time profile of
+    one step of this configuration at batch 512, beside the sgd step of the
+    ``--fused-block --fused-conv3`` phase."""
+    import torch
+
+    from distributeddeeplearning_tpu_torch.ops import fused_conv_bn as fcbn
+    from distributeddeeplearning_tpu_torch.ops import fused_linear_bn as flbn
+    from distributeddeeplearning_tpu_torch.train import cli as train_cli
+    from distributeddeeplearning_tpu_torch.train import loop
+
+    steps_total = 2 * RAMP_STAGE_STEPS
+    ckpt_dir = ROOT / ".cache" / "chip_smoke" / "ramp_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    argv = [*RAMP_ARGV, "--checkpoint-dir", str(ckpt_dir)]
+    per_step = {flbn: RESNET_LINEAR_LAYERS, fcbn: RESNET_CONV3_LAYERS}
+    expected = {k["name"]: per_step.get(k["module"], 0) * steps_total
+                for k in kernels}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    lines = run_train_cli(argv)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = read_counts(kernels)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    metrics, evals, summary = split_lines(lines)
+    losses = [x["loss"] for x in metrics]
+    skips = [x.get("loss_scale_skip", 0.0) for x in metrics]
+    # The lr each step should have used: stage k's schedule at the number
+    # of updates applied before it.
+    config = train_cli.build_config(train_cli.parse_args(argv))
+    want, updates = [], 0
+    for x, skip in zip(metrics, skips):
+        stage = 0 if x["step"] <= RAMP_STAGE_STEPS else 1
+        sched = loop.run_schedule(config.replace(
+            global_batch_size=RESNET_BATCH // (2 - stage),
+            total_steps=RAMP_STAGE_STEPS * (stage + 1)))
+        want.append(sched(updates))
+        updates += skip == 0.0
+    lrs = [x["lr"] for x in metrics]
+    stages = summary.get("batch_ramp", {}).get("stages", [])
+    log(f"# resnet50 large-batch train ({' '.join(RAMP_FLAGS)}, ramp): CLI "
+        f"{cli_s:.2f} s, launches {launches}, expected {expected} (36 x 6 "
+        f"for #8-#10, 13 x 6 for #11-#13; the eval forwards launch none), "
+        f"losses {losses}, lrs {lrs} (want {want}), loss-scale skips "
+        f"{skips}, evals {evals}, peak memory {peak_gb:.2f} GB, stages "
+        f"{json.dumps(stages)}, summary {json.dumps(summary)}")
+    if launches != expected:
+        failures.append(f"large-batch path launches {launches}, expected "
+                        f"{expected}")
+    if len(losses) != steps_total or not all(np.isfinite(x) for x in losses):
+        failures.append(f"large-batch losses {losses}: need {steps_total} "
+                        f"finite")
+    if sum(skips) > 1:
+        failures.append(f"large-batch path skipped {sum(skips)} steps for "
+                        f"loss-scale overflow; at most one allowed")
+    if len(lrs) != len(want) or any(
+            abs(a - b) > 1e-12 + 1e-9 * abs(b) for a, b in zip(lrs, want)):
+        failures.append(f"large-batch lrs {lrs}, want {want}")
+    if len(stages) != 2 or not all(st.get("examples_per_sec")
+                                   for st in stages):
+        failures.append(f"large-batch summary without two timed stages: "
+                        f"{summary}")
+    profile = cli_step_profile(
+        ["--model", "resnet50", "--batch-size", str(RESNET_BATCH),
+         "--synthetic", "--steps", str(RESNET_STEPS), "--seed", str(SEED),
+         *RAMP_FLAGS],
+        f"resnet50 train step (bf16, {' '.join(RAMP_FLAGS)}, batch "
+        f"{RESNET_BATCH})", ("fused_block", FLBN_KERNELS + FCBN_KERNELS))
+    return {"summary": summary, "stages": stages, "peak_memory_gb": peak_gb,
+            "profile": profile, "launches": launches}
+
+
+def phase_scaled_step(failures) -> None:
+    """Phase 20: one f32 step of ResNet-50 at batch 32 with loss scale 2^15
+    and without, on the same seeded weights and batch, with ``fused_bn``
+    (#4-#7) and with ``fused_block`` + ``fused_conv3`` (#8-#13). After
+    unscaling, every gradient and running buffer must equal the unscaled
+    step's bit for bit, or differ by at most SCALED_STEP_TOL of its largest
+    |ref| (each such tensor printed). cuDNN runs its deterministic
+    algorithms here, so that both steps convolve alike."""
+    import torch
+
+    from distributeddeeplearning_tpu_torch import config as cfglib
+    from distributeddeeplearning_tpu_torch.data.synthetic import (
+        SyntheticImages)
+    from distributeddeeplearning_tpu_torch.train import loop, steps
+
+    batch = SyntheticImages(FUSED_BATCH, RESNET_IMAGE, RESNET_CLASSES,
+                            SEED + 9, "cuda").batch(0)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for label, kw in (("fused_bn", {"fused_bn": True}),
+                          ("fused_block+fused_conv3",
+                           {"fused_block": True, "fused_conv3": True})):
+            runs = []
+            for scale in (2.0 ** 15, 0.0):
+                config = cfglib.TrainConfig(
+                    model="resnet50", global_batch_size=FUSED_BATCH,
+                    total_steps=2, seed=SEED + 10, dtype="float32",
+                    precision=cfglib.PrecisionPolicy(
+                        compute_dtype="float32", reduce_dtype="float32",
+                        loss_scale=scale), **kw)
+                state, sched = loop.build_state(config, torch.device("cuda"))
+                metrics = steps.make_train_step(config, sched)(state, batch)
+                runs.append(({f"grad {n}": p.grad.clone() for n, p in
+                              state.model.named_parameters()}
+                             | {f"buffer {n}": b.clone() for n, b in
+                                state.model.named_buffers()},
+                             float(metrics["loss"]),
+                             float(metrics.get("loss_scale_skip", 0.0))))
+                del state
+                torch.cuda.empty_cache()
+            (scaled, loss_s, skip), (plain, loss_p, _) = runs
+            differ = {}
+            for name, ref in plain.items():
+                if not torch.equal(scaled[name], ref):
+                    differ[name] = ((scaled[name] - ref).abs().max().item()
+                                    / max(ref.abs().max().item(), 1e-30))
+            worst = max(differ.values(), default=0.0)
+            log(f"# resnet50 f32 step, {label}, loss scale 2^15 vs none "
+                f"(batch {FUSED_BATCH}): losses {loss_s!r} / {loss_p!r}, "
+                f"skip {skip}, {len(plain) - len(differ)} of {len(plain)} "
+                f"tensors bit for bit; differing (share of largest |ref|): "
+                f"{json.dumps(differ)}")
+            if skip or loss_s != loss_p or worst > SCALED_STEP_TOL:
+                failures.append(f"{label} scaled step: skip {skip}, losses "
+                                f"{loss_s} / {loss_p}, tensors beyond "
+                                f"{SCALED_STEP_TOL}: {differ}")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
 def main() -> int:
     import torch
 
@@ -2231,6 +2511,23 @@ def main() -> int:
               failures, {"fused_block": {"fused_block": True},
                          "fused_block+fused_conv3": {
                              "fused_block": True, "fused_conv3": True}})
+        dense = timed("densenet121_train", phase_densenet_train, kernels,
+                      failures)
+        large = timed("resnet50_large_batch", phase_large_batch, kernels,
+                      failures)
+        log("# one bf16 step at batch 256 (DenseNet-121) and 512 (ResNet-50) "
+            "(wall us, busy us, peak GB): " + json.dumps({
+                "densenet121 mixed": [dense["profile"].get("wall_us"),
+                                      dense["profile"].get("device_busy_us"),
+                                      dense["profile"].get("peak_memory_gb")],
+                "resnet50 sgd --fused-block --fused-conv3": [
+                    conv3["profile"].get("wall_us"),
+                    conv3["profile"].get("device_busy_us"), None],
+                "resnet50 " + " ".join(RAMP_FLAGS): [
+                    large["profile"].get("wall_us"),
+                    large["profile"].get("device_busy_us"),
+                    large["profile"].get("peak_memory_gb")]}))
+        timed("scaled_vs_unscaled_step", phase_scaled_step, failures)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     log(f"# total: {time.perf_counter() - t_start:.2f} s")

@@ -1,14 +1,18 @@
 """Run configuration of the port: the subset of the JAX package's
-``TrainConfig``/``DataConfig``/``OptimizerConfig``
-(``distributeddeeplearning_tpu/config.py``) that one-card training of the
-causal LMs and the ResNets reads, with the same field names and defaults.
+``TrainConfig``/``DataConfig``/``OptimizerConfig``/``ParallelConfig``/
+``PrecisionPolicy`` (``distributeddeeplearning_tpu/config.py``) that one-card
+training of the causal LMs, the ResNets and the DenseNets reads, with the
+same field names and defaults, and the acceptance presets (``preset``).
 
 One default differs: ``TrainConfig.model`` is ``gpt2_small`` (the JAX
-default is a ResNet). The token data is synthetic ids over the model's own
-vocabulary (GPT-2's 50257, Llama's 32000), the image data synthetic NHWC
-images of ``image_size`` with ``num_classes`` labels. Runs are counted in
-steps, not epochs, so the warmup is 5% of the steps, as the JAX schedule
-gives it without an epoch length.
+default is a ResNet); every preset names its model. The token data is
+synthetic ids over the model's own vocabulary (GPT-2's 50257, Llama's
+32000), the image data synthetic NHWC images of ``image_size`` with
+``num_classes`` labels. ``dataset`` names the corpus whose size fixes an
+epoch, as in the JAX package: ``imagenet`` (1,281,167 training images), so
+every run, token models included, has an epoch length, and the warmup is
+``warmup_epochs`` of them (capped at the run's length less one step), as the
+JAX schedule gives it.
 """
 
 from __future__ import annotations
@@ -18,25 +22,136 @@ from typing import Any, Optional
 
 
 @dataclasses.dataclass(frozen=True)
-class OptimizerConfig:
-    """Optimizer + schedule (SGD-momentum default)."""
+class ParallelConfig:
+    """Device-mesh layout, under the JAX names. The one-card port runs
+    every axis at 1 and refuses more (``train/loop.py``
+    ``check_one_card``); the presets carry their layouts across so a flag
+    can bring them to one card, as ``train.py`` lets flags override a
+    preset."""
 
-    name: str = "sgd"             # sgd | adamw
+    data: int = 1       # dp: batch sharding, gradient all-reduce
+    fsdp: int = 1       # parameter sharding along the data axis family
+    model: int = 1      # tp: weight-column/row sharding
+    seq: int = 1        # sp/cp: sequence-dim sharding (ring attention)
+    expert: int = 1     # ep: MoE expert sharding
+    pipeline: int = 1   # pp: pipeline stages
+
+
+@dataclasses.dataclass(frozen=True)
+class PrecisionPolicy:
+    """End-to-end mixed-precision policy: compute, master and reduction
+    dtypes and dynamic loss scaling.
+
+    - ``compute_dtype``: forward/backward activations;
+    - ``param_dtype``: the master weights and optimizer state; must stay
+      ``float32`` (a bf16 master drops every update below ~2^-8 of the
+      weight);
+    - ``reduce_dtype``: the gradient all-reduce payload (no reduction runs
+      on one card; kept so a policy carries across);
+    - ``loss_scale``: the initial dynamic loss scale, 0 = off. The loss is
+      multiplied by the scale before backward and the gradients divided
+      after; a non-finite scaled gradient skips the update and halves the
+      scale, ``loss_scale_growth_interval`` consecutive good steps double
+      it, within [``loss_scale_min``, ``loss_scale_max``]. A backoff
+      reports as ``loss_scale_skip``, never as a bad step.
+    """
+
+    compute_dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+    reduce_dtype: str = "bfloat16"
+    loss_scale: float = 0.0
+    loss_scale_growth_interval: int = 200
+    loss_scale_min: float = 1.0
+    loss_scale_max: float = 65536.0
+
+    @classmethod
+    def mixed(cls) -> "PrecisionPolicy":
+        """The large-batch mixed arm: bf16 compute and wire, f32 masters,
+        dynamic loss scaling armed at 2^15."""
+        return cls(compute_dtype="bfloat16", reduce_dtype="bfloat16",
+                   loss_scale=32768.0)
+
+    @classmethod
+    def fp32(cls) -> "PrecisionPolicy":
+        """The reference arm: everything float32, no scaling."""
+        return cls(compute_dtype="float32", reduce_dtype="float32",
+                   loss_scale=0.0)
+
+    def describe(self) -> str:
+        """Compact tag, e.g. ``bf16/f32/bf16+dls32768``."""
+        short = {"float32": "f32", "bfloat16": "bf16"}
+        tag = (f"{short.get(self.compute_dtype, self.compute_dtype)}/"
+               f"{short.get(self.param_dtype, self.param_dtype)}/"
+               f"{short.get(self.reduce_dtype, self.reduce_dtype)}")
+        if self.loss_scale > 0:
+            tag += f"+dls{self.loss_scale:g}"
+        return tag
+
+
+def resolve_precision(config: "TrainConfig") -> PrecisionPolicy:
+    """The run's effective policy. ``config.precision=None`` derives the
+    legacy one: compute at ``config.dtype``, f32 masters and payload, no
+    scaling. An explicit policy is validated here."""
+    policy = config.precision
+    if policy is None:
+        return PrecisionPolicy(compute_dtype=config.dtype,
+                               param_dtype="float32", reduce_dtype="float32",
+                               loss_scale=0.0)
+    for field, value in (("compute_dtype", policy.compute_dtype),
+                         ("reduce_dtype", policy.reduce_dtype)):
+        if value not in ("float32", "bfloat16"):
+            raise ValueError(
+                f"PrecisionPolicy.{field}={value!r}: use 'float32' or "
+                f"'bfloat16'")
+    if policy.param_dtype != "float32":
+        raise ValueError(
+            f"PrecisionPolicy.param_dtype={policy.param_dtype!r}: master "
+            f"weights must stay float32 — a bf16 master silently drops "
+            f"every update below ~2^-8 of the weight magnitude "
+            f"(docs/mixed_precision.md)")
+    if policy.loss_scale < 0:
+        raise ValueError(f"loss_scale must be >= 0 "
+                         f"(got {policy.loss_scale})")
+    if policy.loss_scale > 0:
+        if policy.loss_scale_growth_interval < 1:
+            raise ValueError("loss_scale_growth_interval must be >= 1")
+        if not (0 < policy.loss_scale_min <= policy.loss_scale
+                <= policy.loss_scale_max):
+            raise ValueError(
+                f"need 0 < loss_scale_min <= loss_scale <= loss_scale_max "
+                f"(got {policy.loss_scale_min} / {policy.loss_scale} / "
+                f"{policy.loss_scale_max})")
+    return policy
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerConfig:
+    """Optimizer + schedule (SGD-momentum default; LARS for large-batch
+    ResNet, LAMB for large-batch transformers)."""
+
+    name: str = "sgd"             # sgd | lars | adamw | lamb
     learning_rate: float = 0.1    # for the reference batch size (256)
     reference_batch: int = 256    # linear-scaling rule base
     momentum: float = 0.9
     weight_decay: float = 1e-4
+    warmup_epochs: float = 5.0
     schedule: str = "warmup_cosine"  # constant | linear | warmup_cosine |
                                      # warmup_poly
+    label_smoothing: float = 0.1  # image classification loss
     grad_clip_norm: Optional[float] = None
+    # Exponential moving average of the parameters (0 = off); when on,
+    # every held-out eval scores the EMA weights.
+    ema_decay: float = 0.0
+    trust_coefficient: float = 0.001  # LARS
     beta1: float = 0.9
     beta2: float = 0.999
     eps: float = 1e-8
-    label_smoothing: float = 0.1  # image classification loss
 
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
+    dataset: str = "imagenet"     # fixes the epoch length; the only one
+                                  # the port knows
     seq_len: int = 128
     image_size: int = 224
     num_classes: int = 1000
@@ -48,22 +163,92 @@ class TrainConfig:
 
     model: str = "gpt2_small"
     global_batch_size: int = 32
-    total_steps: Optional[int] = None
-    dtype: str = "bfloat16"       # compute dtype; parameters stay float32
+    num_epochs: float = 90.0
+    steps_per_epoch: Optional[int] = None  # derived from the dataset if None
+    total_steps: Optional[int] = None      # overrides epochs when set
+    dtype: str = "bfloat16"       # compute dtype; parameters stay float32.
+                                  # Subsumed by ``precision`` when set
+    precision: Optional[PrecisionPolicy] = None  # None derives the legacy
+                                  # policy from ``dtype`` (resolve_precision)
+    batch_ramp: Optional[str] = None  # staged global-batch ramp, e.g.
+                                  # "256:600,512": stages of batch[:steps],
+                                  # the last (no :steps) to the horizon and
+                                  # equal to global_batch_size; the lr
+                                  # follows the linear-scaling rule a stage
+    grad_accum_steps: int = 1     # microbatches per optimizer step
     seed: int = 0
     log_every: int = 100
+    eval_every_epochs: float = 1.0
     checkpoint_dir: Optional[str] = None
     checkpoint_every_steps: int = 5000
     resume: bool = True
+    bad_step_guard: bool = False  # skip an update whose loss or gradient
+                                  # is not finite
+    bad_step_limit: int = 10      # abort after this many consecutive skips
     attention_impl: Optional[str] = None  # None = the model's default
     fused_bn: bool = False        # BatchNorm through the CUDA kernels (CNNs)
     fused_block: bool = False     # bottleneck 1x1 convs through the matmul+
                                   # BatchNorm kernels (ResNet-50/101/152)
     fused_conv3: bool = False     # with fused_block: stride-1 3x3s through
                                   # the conv+BatchNorm kernels
+    parallel: ParallelConfig = dataclasses.field(
+        default_factory=ParallelConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     optimizer: OptimizerConfig = dataclasses.field(
         default_factory=OptimizerConfig)
 
     def replace(self, **kw: Any) -> "TrainConfig":
         return dataclasses.replace(self, **kw)
+
+
+def preset(name: str) -> TrainConfig:
+    """One of the acceptance configurations by name, as the JAX package's
+    ``config.preset`` builds it (fields the port does not carry left
+    out)."""
+    if name == "resnet50_synthetic":
+        return TrainConfig(model="resnet50", global_batch_size=32)
+    if name == "resnet50_dp":
+        return TrainConfig(model="resnet50", global_batch_size=256,
+                           parallel=ParallelConfig(data=8))
+    if name == "resnet152_dp":
+        return TrainConfig(model="resnet152", global_batch_size=256,
+                           parallel=ParallelConfig(data=8))
+    if name == "densenet121_dp":
+        return TrainConfig(model="densenet121", global_batch_size=256,
+                           parallel=ParallelConfig(data=8))
+    if name == "bert_base_mlm":
+        return TrainConfig(
+            model="bert_base", global_batch_size=256,
+            parallel=ParallelConfig(data=8),
+            data=DataConfig(dataset="mlm", seq_len=128),
+            optimizer=OptimizerConfig(
+                name="adamw", learning_rate=1e-4, weight_decay=0.01,
+                schedule="linear", warmup_epochs=0.0, label_smoothing=0.0))
+    if name == "bert_base_mlm_longctx":
+        return TrainConfig(
+            model="bert_base", global_batch_size=32,
+            parallel=ParallelConfig(data=2, seq=4),
+            attention_impl="ring",
+            data=DataConfig(dataset="mlm", seq_len=2048),
+            optimizer=OptimizerConfig(
+                name="adamw", learning_rate=1e-4, weight_decay=0.01,
+                schedule="linear", warmup_epochs=0.0, label_smoothing=0.0))
+    if name == "resnet50_lars_32k":
+        # Batch 32k as 8-way data parallelism x 16 microbatches an update;
+        # peak lr 29.0 at batch 32k, so the linear-scaling rule is the
+        # identity here.
+        return TrainConfig(
+            model="resnet50", global_batch_size=32768, dtype="bfloat16",
+            grad_accum_steps=16,
+            parallel=ParallelConfig(data=8),
+            optimizer=OptimizerConfig(
+                name="lars", learning_rate=29.0, reference_batch=32768,
+                momentum=0.9, weight_decay=1e-4, warmup_epochs=5.0,
+                schedule="warmup_poly", label_smoothing=0.1))
+    raise KeyError(f"unknown preset {name!r}; have {', '.join(PRESETS)}")
+
+
+PRESETS = (
+    "resnet50_synthetic", "resnet50_dp", "resnet152_dp", "densenet121_dp",
+    "bert_base_mlm", "bert_base_mlm_longctx", "resnet50_lars_32k",
+)

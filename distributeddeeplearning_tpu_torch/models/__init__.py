@@ -1,7 +1,8 @@
 """Model registry of the port: the causal LM and ResNet entries of the JAX
-registry (``distributeddeeplearning_tpu/models/__init__.py``), same names
-and parameter counts, plus small test entries of the port's own
-(``gpt_nano``, ``llama_nano``, ``resnet_nano``)."""
+registry (``distributeddeeplearning_tpu/models/__init__.py``) and its
+DenseNets, same names and parameter counts, plus small test entries of the
+port's own (``gpt_nano``, ``llama_nano``, ``resnet_nano``,
+``densenet_nano``)."""
 
 from __future__ import annotations
 
@@ -25,13 +26,14 @@ class ModelSpec:
 
 
 def _registry() -> dict[str, ModelSpec]:
-    from distributeddeeplearning_tpu_torch.models import gpt, llama, resnet
+    from distributeddeeplearning_tpu_torch.models import (densenet, gpt,
+                                                          llama, resnet)
 
     def lm(name, build, params):
         return ModelSpec(name=name, build=build, param_count=params)
 
-    def img(name, params):
-        return ModelSpec(name=name, build=getattr(resnet, name),
+    def img(name, params, family=resnet):
+        return ModelSpec(name=name, build=getattr(family, name),
                          param_count=params, input_kind="image")
 
     return {
@@ -55,6 +57,9 @@ def _registry() -> dict[str, ModelSpec]:
         "resnet101": img("resnet101", 44_549_160),
         "resnet152": img("resnet152", 60_192_808),
         "resnet_nano": img("resnet_nano", 0),
+        "densenet121": img("densenet121", 7_978_856, densenet),
+        "densenet169": img("densenet169", 14_149_480, densenet),
+        "densenet_nano": img("densenet_nano", 0, densenet),
     }
 
 

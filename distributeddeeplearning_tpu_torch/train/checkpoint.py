@@ -1,5 +1,6 @@
-"""Checkpoints of the train state: ``torch.save`` every N steps and at the
-end of a run, resume from the newest.
+"""Checkpoints of the train state (model, optimizer, step and update count,
+EMA, loss scale): ``torch.save`` every N steps and at the end of a run,
+resume from the newest, or restore it for evaluation only.
 
 The JAX package writes orbax checkpoints; reading those needs JAX and comes
 with a later slice. A checkpoint here is one file, ``step_<n>.pt``, written
@@ -51,13 +52,34 @@ class Checkpointer:
             return self.save(state)
         return None
 
-    def restore(self, state: TrainState) -> bool:
-        """Load the newest checkpoint into ``state``; False when none."""
+    def _load_latest(self, state: TrainState) -> Optional[dict]:
         step = self.latest_step()
         if step is None:
-            return False
+            return None
         device = next(state.model.parameters()).device
-        state.load_state_dict(torch.load(self.dir / f"step_{step}.pt",
-                                         map_location=device,
-                                         weights_only=True))
+        return torch.load(self.dir / f"step_{step}.pt", map_location=device,
+                          weights_only=True)
+
+    def restore(self, state: TrainState) -> bool:
+        """Load the newest checkpoint into ``state`` (model, optimizer,
+        update count, EMA, loss scale); False when none."""
+        saved = self._load_latest(state)
+        if saved is None:
+            return False
+        state.load_state_dict(saved)
+        return True
+
+    def restore_for_eval(self, state: TrainState) -> bool:
+        """Load what evaluation needs from the newest checkpoint: the
+        model's parameters and buffers, the step, and the EMA as the
+        checkpoint has it (kept or not, whatever this run's flag says); the
+        optimizer stays fresh. False when there is none."""
+        saved = self._load_latest(state)
+        if saved is None:
+            return False
+        state.step = int(saved["step"])
+        state.model.load_state_dict(saved["model"])
+        ema = saved.get("ema")
+        state.ema = (None if ema is None else
+                     {k: v.float() for k, v in ema.items()})
         return True

@@ -1,5 +1,5 @@
-"""Training CLI of the PyTorch port: causal-LM and ResNet training on one
-card.
+"""Training CLI of the PyTorch port: causal-LM, ResNet and DenseNet
+training on one card.
 
     python -m distributeddeeplearning_tpu_torch.train --model gpt2_small \
         --batch-size 16 --seq-len 1024 --attn flash --synthetic --steps 100
@@ -9,14 +9,26 @@ card.
         --batch-size 512 --synthetic --fused-block --steps 100
     python -m distributeddeeplearning_tpu_torch.train --model resnet50 \
         --batch-size 512 --synthetic --fused-block --fused-conv3 --steps 100
+    python -m distributeddeeplearning_tpu_torch.train --config \
+        densenet121_dp --dp 1 --synthetic --precision mixed --ema-decay \
+        0.999 --eval-batches 2 --steps 100
+    python -m distributeddeeplearning_tpu_torch.train --model resnet50 \
+        --fused-block --fused-conv3 --precision mixed --optimizer lars \
+        --batch-ramp 256:300,512 --batch-size 512 --checkpoint-dir ckpt \
+        --checkpoint-every 300 --synthetic --steps 1000
 
 The counterpart of the root ``train.py`` for these models, with its flags
-where they apply. Data is synthetic token ids or images made on the device;
-weights start random from ``--seed``. Prints one JSON metric line per log
-step and a final ``{"summary": ...}`` line. Runs on the GPU unless
-``--device cpu`` is given. Flags of later slices (data parallelism and
-SyncBN, accumulation, mixed precision with loss scaling, model
-parallelism, ZeRO) raise instead of being ignored.
+where they apply: a preset by name (``--config``, ``--list-configs``)
+whose fields the flags override, precision policies with dynamic loss
+scaling, sgd/lars/adamw/lamb, an EMA of the weights, a staged batch ramp,
+held-out eval (``--eval-batches``, ``--eval-only``) and the bad-step
+guard. Data is synthetic token ids or images made on the device; weights
+start random from ``--seed``. Prints one JSON metric line per log step and
+a final ``{"summary": ...}`` line. Runs on the GPU unless ``--device cpu``
+is given. Without ``--steps`` an image run lasts ``--epochs`` ImageNet
+epochs. Flags and presets of later slices (a mesh axis above 1,
+accumulation, SyncBN, ZeRO, real data, BERT) raise instead of being
+ignored.
 """
 
 from __future__ import annotations
@@ -25,33 +37,39 @@ import argparse
 import dataclasses
 import sys
 
-from distributeddeeplearning_tpu_torch.config import TrainConfig
+from distributeddeeplearning_tpu_torch import config as cfglib
 from distributeddeeplearning_tpu_torch.models import model_spec
+from distributeddeeplearning_tpu_torch.train import loop
+from distributeddeeplearning_tpu_torch.train.checkpoint import Checkpointer
+from distributeddeeplearning_tpu_torch.train.optim import check_ema_decay
 
 # Flags of train.py that this slice does not carry, and the slice that
 # brings each: (flag, value that is a no-op, later slice).
 _LATER = (
-    ("dp", 1, "data parallelism over NCCL with the bucket plan"),
-    ("accum", 1, "gradient accumulation, with data parallelism"),
-    ("tp", 1, "tensor parallelism"),
-    ("sp", 1, "sequence parallelism (ring/zigzag attention)"),
-    ("pp", 1, "pipeline parallelism"),
-    ("precision", None, "mixed precision with dynamic loss scaling"),
     ("optimizer_sharding", None, "ZeRO optimizer sharding"),
     ("sync_bn", False, "data parallelism (cross-replica BatchNorm "
      "statistics)"),
-    ("data_dir", None, "real token data"),
+    ("data_dir", None, "real data (the loaders)"),
 )
+# Mesh flags: each overrides an axis of the config's ParallelConfig; the
+# loop refuses any above 1 (train/loop.py check_one_card).
+_MESH = (("dp", "data"), ("tp", "model"), ("sp", "seq"), ("pp", "pipeline"))
 
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
-    p.add_argument("--model", default="gpt2_small",
-                   help="registry name (gpt2_small, llama_tiny, ...)")
+    p.add_argument("--config", default=None,
+                   help="acceptance-config preset name (see --list-configs)")
+    p.add_argument("--list-configs", action="store_true")
+    p.add_argument("--model", default=None,
+                   help="registry name (gpt2_small, resnet50, densenet121, "
+                        "...); default gpt2_small, or the preset's")
     p.add_argument("--batch-size", type=int, default=None,
                    help="global batch (examples per step)")
-    p.add_argument("--steps", type=int, required=True)
+    p.add_argument("--steps", type=int, default=None,
+                   help="total train steps (overrides --epochs)")
+    p.add_argument("--epochs", type=float, default=None)
     p.add_argument("--seq-len", type=int, default=None)
     p.add_argument("--image-size", type=int, default=None,
                    help="side of the synthetic images (default 224)")
@@ -59,7 +77,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="classes of an image model (default 1000)")
     p.add_argument("--fused-bn", action="store_true",
                    help="BatchNorm(+residual)+ReLU through the CUDA kernels "
-                        "(ops/fused_batchnorm.py); image models")
+                        "(ops/fused_batchnorm.py); ResNets")
     p.add_argument("--fused-block", action="store_true",
                    help="bottleneck 1x1 convolutions with their BatchNorm "
                         "work through the CUDA matmul kernels "
@@ -74,8 +92,19 @@ def parse_args(argv=None) -> argparse.Namespace:
                    choices=["sgd", "lars", "adamw", "lamb"])
     p.add_argument("--lr", type=float, default=None,
                    help="base learning rate at the reference batch (256)")
+    p.add_argument("--ema-decay", type=float, default=None,
+                   help="EMA of the weights at this decay (0 = off); every "
+                        "eval scores the EMA weights")
     p.add_argument("--dtype", default=None, choices=["bfloat16", "float32"],
                    help="compute dtype; parameters stay float32")
+    p.add_argument("--precision", default=None, choices=["fp32", "mixed"],
+                   help="precision policy: 'mixed' = bf16 compute, f32 "
+                        "masters, dynamic loss scaling from 2^15; 'fp32' = "
+                        "everything float32; sets --dtype")
+    p.add_argument("--batch-ramp", default=None, metavar="SPEC",
+                   help="staged global-batch ramp, e.g. '256:300,512': 300 "
+                        "steps at 256, then --batch-size; boundaries on the "
+                        "checkpoint cadence when checkpointing")
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--log-every", type=int, default=None)
     p.add_argument("--warmup-steps", type=int, default=2,
@@ -87,6 +116,28 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--checkpoint-every", type=int, default=None)
     p.add_argument("--no-resume", action="store_true",
                    help="ignore existing checkpoints")
+    p.add_argument("--eval-batches", type=int, default=0,
+                   help="periodic + final held-out eval over N batches "
+                        "(top-1 for image models, loss and perplexity for "
+                        "token models)")
+    p.add_argument("--eval-every-epochs", type=float, default=None,
+                   help="periodic-eval cadence in epochs (default 1.0)")
+    p.add_argument("--eval-only", action="store_true",
+                   help="restore the newest checkpoint and evaluate without "
+                        "training (needs --checkpoint-dir and "
+                        "--eval-batches)")
+    p.add_argument("--bad-step-guard", action="store_true",
+                   help="skip an update whose loss or gradient is not "
+                        "finite")
+    p.add_argument("--bad-step-limit", type=int, default=None,
+                   help="abort after K consecutive skipped updates "
+                        "(default 10)")
+    p.add_argument("--accum", type=int, default=None,
+                   help="gradient-accumulation microbatches (1 on one card)")
+    for flag, _ in _MESH:
+        p.add_argument(f"--{flag}", type=int, default=None,
+                       help=argparse.SUPPRESS if flag != "dp" else
+                       "data-parallel size (1 on one card)")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     for flag, default, _ in _LATER:
         name = "--" + flag.replace("_", "-")
@@ -94,64 +145,130 @@ def parse_args(argv=None) -> argparse.Namespace:
             p.add_argument(name, action="store_true",
                            help=argparse.SUPPRESS)
         else:
-            p.add_argument(name, type=int if default == 1 else str,
-                           default=default, help=argparse.SUPPRESS)
+            p.add_argument(name, default=default, help=argparse.SUPPRESS)
     return p.parse_args(argv)
 
 
-def build_config(args: argparse.Namespace) -> TrainConfig:
+def _positive(args, *flags) -> None:
+    for flag in flags:
+        value = getattr(args, flag)
+        if value is not None and value <= 0:
+            raise SystemExit(f"--{flag.replace('_', '-')} must be positive "
+                             f"(got {value})")
+
+
+def build_config(args: argparse.Namespace) -> cfglib.TrainConfig:
     for flag, default, later in _LATER:
         value = getattr(args, flag)
         if value != default:
             raise SystemExit(f"--{flag.replace('_', '-')} {value}: not "
                              f"carried by the port yet; it comes with "
                              f"{later}")
-    if args.steps <= 0:
-        raise SystemExit(f"--steps must be positive (got {args.steps})")
-    for flag in ("image_size", "num_classes"):
-        value = getattr(args, flag)
-        if value is not None and value <= 0:
-            raise SystemExit(f"--{flag.replace('_', '-')} must be positive "
-                             f"(got {value})")
+    _positive(args, "steps", "image_size", "num_classes", "accum",
+              "checkpoint_every", "bad_step_limit", "eval_every_epochs",
+              "epochs")
+    try:
+        cfg = (cfglib.preset(args.config) if args.config
+               else cfglib.TrainConfig())
+    except KeyError as e:
+        raise SystemExit(f"--config: {e.args[0]}") from None
+    model = args.model or cfg.model
     for flag in ("fused_bn", "fused_block"):
-        if getattr(args, flag) and \
-                model_spec(args.model).input_kind != "image":
-            raise SystemExit(f"--{flag.replace('_', '-')}: {args.model} has "
+        if getattr(args, flag) and model_spec(model).input_kind != "image":
+            raise SystemExit(f"--{flag.replace('_', '-')}: {model} has "
                              f"no BatchNorm; the fused kernels serve the "
                              f"image models (ResNet)")
     if args.fused_conv3 and not args.fused_block:
         raise SystemExit("--fused-conv3 requires --fused-block (it extends "
                          "the fused bottleneck's statistics plumbing)")
-    cfg = TrainConfig(model=args.model, total_steps=args.steps,
-                      fused_bn=args.fused_bn, fused_block=args.fused_block,
-                      fused_conv3=args.fused_conv3)
     updates = {k: v for k, v in (
-        ("global_batch_size", args.batch_size), ("dtype", args.dtype),
+        ("model", args.model), ("global_batch_size", args.batch_size),
+        ("total_steps", args.steps), ("num_epochs", args.epochs),
+        ("dtype", args.dtype), ("batch_ramp", args.batch_ramp),
         ("seed", args.seed), ("log_every", args.log_every),
         ("checkpoint_dir", args.checkpoint_dir),
         ("checkpoint_every_steps", args.checkpoint_every),
-        ("attention_impl", args.attn)) if v is not None}
+        ("attention_impl", args.attn),
+        ("eval_every_epochs", args.eval_every_epochs),
+        ("bad_step_limit", args.bad_step_limit),
+        ("grad_accum_steps", args.accum)) if v is not None}
+    for flag in ("fused_bn", "fused_block", "fused_conv3", "bad_step_guard"):
+        if getattr(args, flag):
+            updates[flag] = True
+    if args.precision:
+        pol = (cfglib.PrecisionPolicy.mixed() if args.precision == "mixed"
+               else cfglib.PrecisionPolicy.fp32())
+        updates.update(precision=pol, dtype=pol.compute_dtype)
     if args.no_resume:
         updates["resume"] = False
+    mesh = {axis: getattr(args, flag) for flag, axis in _MESH
+            if getattr(args, flag) is not None}
+    if mesh:
+        updates["parallel"] = dataclasses.replace(cfg.parallel, **mesh)
     data = {k: v for k, v in (("seq_len", args.seq_len),
                               ("image_size", args.image_size),
                               ("num_classes", args.num_classes)) if v}
     if data:
         updates["data"] = dataclasses.replace(cfg.data, **data)
     opt = {k: v for k, v in (("name", args.optimizer),
-                             ("learning_rate", args.lr)) if v is not None}
+                             ("learning_rate", args.lr),
+                             ("ema_decay", args.ema_decay)) if v is not None}
     if opt:
         updates["optimizer"] = dataclasses.replace(cfg.optimizer, **opt)
-    return cfg.replace(**updates)
+    cfg = cfg.replace(**updates)
+    try:
+        loop.check_one_card(cfg)
+        cfglib.resolve_precision(cfg)
+        check_ema_decay(cfg.optimizer)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+    return cfg
+
+
+def _horizon(args, cfg: cfglib.TrainConfig) -> cfglib.TrainConfig:
+    """The run's total steps: --steps, none for --eval-only, else
+    --epochs (default 90) of the dataset's epoch for an image model."""
+    if args.eval_only:
+        if not (args.checkpoint_dir and args.eval_batches > 0):
+            raise SystemExit(
+                "--eval-only needs --checkpoint-dir (the model to restore) "
+                "and a positive --eval-batches (how much of the held-out "
+                "split to score)")
+        if args.no_resume:
+            raise SystemExit(
+                "--eval-only with --no-resume would score freshly "
+                "initialized weights; drop --no-resume")
+        if args.steps is not None or args.epochs:
+            raise SystemExit(
+                "--eval-only trains nothing; drop --steps/--epochs "
+                "(or drop --eval-only to train then eval)")
+        if Checkpointer(cfg.checkpoint_dir, 0).latest_step() is None:
+            raise SystemExit(
+                f"--eval-only: no checkpoint found in "
+                f"{cfg.checkpoint_dir!r}; refusing to score randomly "
+                f"initialized weights")
+        return cfg.replace(total_steps=0)
+    if cfg.total_steps is not None:
+        return cfg
+    if model_spec(cfg.model).input_kind == "tokens":
+        raise SystemExit("token models have no epoch semantics; pass "
+                         "--steps")
+    return cfg.replace(
+        total_steps=int(cfg.num_epochs * loop.steps_per_epoch(cfg)))
 
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    config = build_config(args)
-    from distributeddeeplearning_tpu_torch.train import loop
-
+    if args.list_configs:
+        print("\n".join(cfglib.PRESETS))
+        return 0
+    if args.eval_batches < 0:
+        raise SystemExit(f"--eval-batches must be >= 0 "
+                         f"(got {args.eval_batches})")
+    config = _horizon(args, build_config(args))
     loop.run(config, device=args.device, warmup_steps=args.warmup_steps,
-             emit=lambda line: print(line, flush=True))
+             emit=lambda line: print(line, flush=True),
+             eval_batches=args.eval_batches, restore_for_eval=args.eval_only)
     return 0
 
 

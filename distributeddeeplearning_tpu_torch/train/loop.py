@@ -1,18 +1,22 @@
 """The training loop of the port: counterpart of
 ``distributeddeeplearning_tpu/train/loop.py`` for one card.
 
-Builds the model (float32 masters, compute dtype from the config), the
-optimizer and schedule, the synthetic source of the model's input kind
-(token ids or images) and the checkpointer; resumes
+Builds the model (float32 masters, compute dtype from the precision
+policy), the optimizer and schedule (warmup in epochs of
+``steps_per_epoch``), the EMA and loss-scale state, the synthetic source of
+the model's input kind (token ids or images) and the checkpointer; resumes
 from the newest checkpoint; runs the steps; prints one JSON metric line per
-log step and returns the run summary. Throughput excludes the first
-``warmup_steps`` steps (first-call and allocation costs), as the JAX loop
-does.
+log step; evaluates on a held-out synthetic set every
+``eval_every_epochs`` and at the end; and returns the run summary.
+Throughput excludes the first ``warmup_steps`` steps (first-call and
+allocation costs), the evals and the final checkpoint. A ``batch_ramp``
+runs as one segment a stage (``run_ramp``).
 """
 
 from __future__ import annotations
 
 import json
+import math
 import sys
 import time
 from typing import Any, Callable, Optional
@@ -20,41 +24,120 @@ from typing import Any, Callable, Optional
 import torch
 
 from distributeddeeplearning_tpu_torch import resolve_device
-from distributeddeeplearning_tpu_torch.config import TrainConfig
+from distributeddeeplearning_tpu_torch.config import (
+    TrainConfig, resolve_precision)
 from distributeddeeplearning_tpu_torch.data.synthetic import (
     SyntheticCausalTokens, SyntheticImages)
 from distributeddeeplearning_tpu_torch.models import get_model, model_spec
+from distributeddeeplearning_tpu_torch.train import optim
 from distributeddeeplearning_tpu_torch.train.checkpoint import Checkpointer
-from distributeddeeplearning_tpu_torch.train.optim import make_optimizer
 from distributeddeeplearning_tpu_torch.train.state import TrainState
-from distributeddeeplearning_tpu_torch.train.steps import make_train_step
+from distributeddeeplearning_tpu_torch.train.steps import (
+    ema_init, init_loss_scale, make_eval_step, make_token_eval_step,
+    make_train_step)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# ImageNet-1k's training split, the JAX package's
+# ``data/imagenet.py:TRAIN_SPLIT_SIZE``.
+TRAIN_SPLIT_SIZE = 1_281_167
+# Mesh axes the one-card port refuses above 1, with the slice that brings
+# each.
+_LATER_AXES = (
+    ("data", "--dp", "data parallelism (NCCL with the bucket plan, which "
+     "also brings --accum and SyncBN)"),
+    ("fsdp", None, "the GSPMD slice (FSDP and tensor parallelism)"),
+    ("model", "--tp", "the GSPMD slice (FSDP and tensor parallelism)"),
+    ("seq", "--sp", "ring and zigzag attention"),
+    ("expert", None, "mixture-of-experts models"),
+    ("pipeline", "--pp", "pipeline parallelism"),
+)
+_FUSED = ("fused_bn", "fused_block", "fused_conv3")
 
 
-def build_state(config: TrainConfig, device
+def steps_per_epoch(config: TrainConfig) -> Optional[int]:
+    """Explicit ``config.steps_per_epoch``, else the dataset's training
+    split over the global batch (ImageNet: 1,281,167 images, for token
+    models too, as the JAX loop counts it), else None. An imagefolder
+    ``data_dir``'s own count comes with the data loaders."""
+    if config.steps_per_epoch:
+        return config.steps_per_epoch
+    if config.data.dataset == "imagenet":
+        return max(TRAIN_SPLIT_SIZE // config.global_batch_size, 1)
+    return None
+
+
+def check_one_card(config: TrainConfig) -> None:
+    """Refuse what the one-card port does not carry, naming the slice that
+    brings it: a mesh axis above 1, gradient accumulation, a dataset other
+    than ImageNet (BERT's MLM data), a fused BatchNorm flag on a model
+    without that path."""
+    for axis, flag, later in _LATER_AXES:
+        size = getattr(config.parallel, axis)
+        if size > 1:
+            name = flag or f"parallel.{axis}"
+            raise ValueError(
+                f"{name} {size}: the port runs on one card; {later} comes "
+                f"with a later slice. Set {name} to 1")
+    if config.grad_accum_steps > 1:
+        raise ValueError(
+            f"--accum {config.grad_accum_steps} (grad_accum_steps): "
+            f"gradient accumulation comes with data parallelism, a later "
+            f"slice. Set --accum to 1")
+    if config.data.dataset != "imagenet":
+        raise ValueError(
+            f"dataset {config.data.dataset!r}: the port knows only "
+            f"'imagenet'; BERT and its MLM data come with a later slice "
+            f"(BERT and ViT)")
+    spec = model_spec(config.model)
+    if spec.input_kind == "image" and config.model.startswith("densenet"):
+        on = [f for f in _FUSED if getattr(config, f)]
+        if on:
+            raise ValueError(
+                f"{', '.join(on)}: {config.model} has no fused BatchNorm "
+                f"path (neither has the JAX DenseNet); its BatchNorm runs "
+                f"plainly")
+
+
+def run_schedule(config: TrainConfig) -> Callable[[int], float]:
+    """The run's schedule: ``config.optimizer``'s at the global batch over
+    ``total_steps``, warming up over ``warmup_epochs`` of
+    ``steps_per_epoch(config)``, as the JAX loop builds it."""
+    return optim.make_schedule(config.optimizer, config.global_batch_size,
+                               config.total_steps, steps_per_epoch(config))
+
+
+def build_state(config: TrainConfig, device,
+                carried: Optional[TrainState] = None
                 ) -> tuple[TrainState, Callable]:
-    """(state at step 0, schedule): the model in training mode on
-    ``device``, initialised from ``config.seed``, and its optimizer over
-    ``config.total_steps``."""
+    """(state, schedule): the model in training mode on ``device``,
+    initialised from ``config.seed``, its optimizer, EMA and loss scale at
+    step 0, and the schedule over ``config.total_steps``. A ``carried``
+    state (the previous stage of a batch ramp) is kept, and only the
+    schedule is made for this config's batch and horizon."""
+    if carried is not None:
+        return carried, run_schedule(config)
     if _is_image(config):
-        kw: dict[str, Any] = {"num_classes": config.data.num_classes,
-                              "fused_bn": config.fused_bn,
-                              "fused_block": config.fused_block,
-                              "fused_conv3": config.fused_conv3}
+        kw: dict[str, Any] = {"num_classes": config.data.num_classes}
+        kw.update({f: True for f in _FUSED if getattr(config, f)})
     else:
         kw = {"seq_len": config.data.seq_len}
         if config.attention_impl:
             kw["attention_impl"] = config.attention_impl
+    dtype = _DTYPES[resolve_precision(config).compute_dtype]
     # Weights from the seed alone; the caller's global RNG state is kept.
     with torch.random.fork_rng(
             devices=[device] if device.type == "cuda" else []):
         torch.manual_seed(config.seed)
-        model = get_model(config.model, dtype=_DTYPES[config.dtype],
-                          device=device, **kw).train()
-    opt, sched = make_optimizer(config.optimizer, model,
-                                config.global_batch_size, config.total_steps)
-    return TrainState(step=0, model=model, optimizer=opt), sched
+        model = get_model(config.model, dtype=dtype, device=device,
+                          **kw).train()
+    opt, sched = optim.make_optimizer(
+        config.optimizer, model, config.global_batch_size,
+        config.total_steps, steps_per_epoch(config))
+    state = TrainState(
+        step=0, model=model, optimizer=opt,
+        ema=ema_init(model) if config.optimizer.ema_decay > 0 else None,
+        loss_scale=init_loss_scale(config, device))
+    return state, sched
 
 
 def _is_image(config: TrainConfig) -> bool:
@@ -77,32 +160,210 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+class _EvaluatorBase:
+    """Held-out eval over ``num_batches`` synthetic batches at batch index
+    ``SYNTHETIC_EVAL_OFFSET`` on: disjoint from every training step's
+    batch, and the same set at every eval."""
+
+    SYNTHETIC_EVAL_OFFSET = 1 << 30
+    metric_name: str
+    best: Callable
+
+    def __init__(self, source, num_batches: int, eval_step):
+        self.source, self.num_batches = source, num_batches
+        self.eval_step = eval_step
+
+    def __call__(self, state: TrainState) -> float:
+        outs = [self.eval_step(state, self.source.batch(
+            self.SYNTHETIC_EVAL_OFFSET + j)) for j in range(self.num_batches)]
+        return self._accumulate(outs)
+
+
+class _Evaluator(_EvaluatorBase):
+    """Top-1 of an image model; ``best`` is ``max``."""
+
+    metric_name = "eval_top1"
+    best = staticmethod(max)
+
+    def _accumulate(self, outs) -> float:
+        correct = sum(int(o["correct"]) for o in outs)
+        total = sum(int(o["total"]) for o in outs)
+        return correct / max(total, 1)
+
+
+class _TokenEvaluator(_EvaluatorBase):
+    """Mean per-token loss of a causal LM (perplexity = exp of it), exact
+    over the batches' (loss sum, token count); ``best`` is ``min``."""
+
+    metric_name = "eval_loss"
+    best = staticmethod(min)
+
+    def _accumulate(self, outs) -> float:
+        loss_sum = sum(float(o["loss_sum"]) for o in outs)
+        count = sum(float(o["count"]) for o in outs)
+        return loss_sum / max(count, 1.0)
+
+
+def make_evaluator(config: TrainConfig, model, device, num_batches: int
+                   ) -> _EvaluatorBase:
+    source = make_source(config, model, device)
+    if _is_image(config):
+        return _Evaluator(source, num_batches, make_eval_step(config))
+    return _TokenEvaluator(source, num_batches, make_token_eval_step(config))
+
+
+class _BadStepTracker:
+    """Counts the skipped updates the guard reports (``bad_step``) and
+    aborts after ``limit`` consecutive ones. A flag is read two steps after
+    its step, so the tracker itself never waits on the device; the rest is
+    read at the end of the run."""
+
+    _LAG = 2
+
+    def __init__(self, limit: int):
+        self.limit = max(int(limit), 1)
+        self.total = 0
+        self._consecutive = 0
+        self._window: list = []
+
+    def push(self, metrics: dict) -> None:
+        flag = metrics.get("bad_step")
+        if flag is None:
+            return
+        self._window.append(flag)
+        if len(self._window) > self._LAG:
+            self._check(self._window.pop(0))
+
+    def drain(self) -> None:
+        while self._window:
+            self._check(self._window.pop(0))
+
+    def _check(self, flag) -> None:
+        if float(flag) > 0:
+            self.total += 1
+            self._consecutive += 1
+            if self._consecutive >= self.limit:
+                raise RuntimeError(
+                    f"aborting: {self._consecutive} consecutive non-finite "
+                    f"update steps (bad_step_limit={self.limit}) — the run "
+                    f"is diverging, not hitting stray bad batches; lower "
+                    f"the learning rate or inspect the data shards. "
+                    f"{self.total} update(s) were skipped in total.")
+        else:
+            self._consecutive = 0
+
+
+def run_ramp(config: TrainConfig, stages: list, *, device, warmup_steps: int,
+             emit: Callable[[str], None], eval_batches: int,
+             return_state: bool) -> dict:
+    """A staged batch ramp: each stage a segment of ``run`` at the stage's
+    batch, whose schedule is the linear-scaling rule's at that batch over
+    the horizon of the stage's end. Segments chain through the checkpoint
+    directory when there is one (every boundary is a checkpoint step), else
+    carry the state in process. Returns the last segment's summary with a
+    ``batch_ramp`` block, and emits it."""
+    total_steps = config.total_steps
+    live = [st for st in stages if st.start_step < total_steps] or stages[-1:]
+    carried = None
+    summary: dict[str, Any] = {}
+    stage_meta = []
+    for k, st in enumerate(live):
+        end = total_steps if st.end_step is None else min(st.end_step,
+                                                          total_steps)
+        cfg_s = config.replace(global_batch_size=st.batch, total_steps=end)
+        if k > 0 and config.checkpoint_dir:
+            cfg_s = cfg_s.replace(resume=True)
+        last = k == len(live) - 1
+        want_state = (return_state and last) or (
+            not config.checkpoint_dir and not last)
+        summary = run(cfg_s, device=device, warmup_steps=warmup_steps,
+                      emit=emit, eval_batches=eval_batches,
+                      return_state=want_state, _ramp_stage=True,
+                      _carried=carried)
+        carried = summary.get("state")
+        if not (return_state and last):
+            summary.pop("state", None)
+        stage_meta.append({"batch": int(st.batch),
+                           "start_step": int(st.start_step),
+                           "end_step": int(end),
+                           "examples_per_sec": summary.get(
+                               "examples_per_sec")})
+    summary["batch_ramp"] = {"spec": config.batch_ramp, "stages": stage_meta}
+    emit(json.dumps({"summary": {k: v for k, v in summary.items()
+                                 if k != "state"}}))
+    return summary
+
+
 def run(config: TrainConfig, *, device=None, warmup_steps: int = 2,
-        emit: Callable[[str], None] = print) -> dict:
+        emit: Callable[[str], None] = print, eval_batches: int = 0,
+        restore_for_eval: bool = False, return_state: bool = False,
+        _ramp_stage: bool = False,
+        _carried: Optional[TrainState] = None) -> dict:
     """Train to ``config.total_steps``; returns the summary (also emitted
     as the last ``{"summary": ...}`` line). ``device``: ``cuda`` unless
-    ``cpu`` is asked for."""
-    total_steps = config.total_steps
-    if not total_steps or total_steps <= 0:
+    ``cpu`` is asked for. ``eval_batches`` > 0 evaluates every
+    ``eval_every_epochs`` and at the end (top-1 for image models, loss and
+    perplexity for token models). ``restore_for_eval``: restore the newest
+    checkpoint's parameters, buffers, step and EMA, train nothing, and
+    evaluate. ``return_state`` adds the state under ``"state"``."""
+    if not _ramp_stage and not restore_for_eval:
+        ramp = optim.parse_batch_ramp(
+            config.batch_ramp, final_batch=config.global_batch_size,
+            checkpoint_every=(config.checkpoint_every_steps
+                              if config.checkpoint_dir else 0))
+        if ramp is not None:
+            return run_ramp(config, ramp, device=device,
+                            warmup_steps=warmup_steps, emit=emit,
+                            eval_batches=eval_batches,
+                            return_state=return_state)
+    total_steps = config.total_steps or 0
+    if restore_for_eval:
+        if not (config.checkpoint_dir and config.resume):
+            raise ValueError("restore_for_eval needs a checkpoint_dir to "
+                             "restore from, with resume on")
+    elif total_steps <= 0:
         raise ValueError(f"total_steps must be positive (got {total_steps})")
+    check_one_card(config)
     device = resolve_device(device)
-    state, sched = build_state(config, device)
+    state, sched = build_state(config.replace(total_steps=max(total_steps,
+                                                              1)),
+                               device, _carried)
     ckpt: Optional[Checkpointer] = None
     if config.checkpoint_dir:
         ckpt = Checkpointer(config.checkpoint_dir,
                             config.checkpoint_every_steps)
-        if config.resume and ckpt.restore(state):
+        restored = config.resume and (ckpt.restore_for_eval(state)
+                                      if restore_for_eval
+                                      else ckpt.restore(state))
+        if restored:
             print(f"# resumed from step {state.step}", file=sys.stderr,
                   flush=True)
     start = state.step
+    end_step = max(total_steps, start)
+    print(f"# model={config.model} global_batch={config.global_batch_size} "
+          f"precision={resolve_precision(config).describe()} "
+          f"optimizer={config.optimizer.name} "
+          f"batch_ramp={optim.ramp_describe(config)}"
+          + (f" | resumed@{start}" if start else ""), file=sys.stderr,
+          flush=True)
     source = make_source(config, state.model, device)
     train_step = make_train_step(config, sched)
+    evaluator = None
+    eval_every_steps = 0
+    evals: list[tuple[int, float]] = []
+    if eval_batches > 0:
+        evaluator = make_evaluator(config, state.model, device, eval_batches)
+        spe = steps_per_epoch(config)
+        if config.eval_every_epochs > 0 and spe is not None:
+            eval_every_steps = max(int(config.eval_every_epochs * spe), 1)
+    bad_tracker = _BadStepTracker(config.bad_step_limit)
     warmup = min(warmup_steps, max(total_steps - start - 1, 0))
     metrics: dict[str, Any] = {}
     t_timed = time.perf_counter() if warmup == 0 else None
     t_last, step_last = time.perf_counter(), start
     while state.step < total_steps:
         metrics = train_step(state, source.batch(state.step))
+        bad_tracker.push(metrics)
         i = state.step
         if i - start == warmup and t_timed is None:
             _sync(device)
@@ -110,10 +371,8 @@ def run(config: TrainConfig, *, device=None, warmup_steps: int = 2,
         if ckpt is not None and i < total_steps:
             ckpt.maybe_save(state)
         if i % config.log_every == 0 or i == total_steps:
-            record = {"step": i, "loss": float(metrics["loss"]),
-                      "lr": metrics["lr"]}
-            if "accuracy" in metrics:
-                record["accuracy"] = float(metrics["accuracy"])
+            record = {"step": i}
+            record.update({k: float(v) for k, v in metrics.items()})
             now = time.perf_counter()  # float(loss) waited for the device
             dt = (now - t_last) / max(i - step_last, 1)
             record["step_time_s"] = round(dt, 6)
@@ -121,7 +380,18 @@ def run(config: TrainConfig, *, device=None, warmup_steps: int = 2,
                 config.global_batch_size / dt, 2)
             t_last, step_last = now, i
             emit(json.dumps(record))
+        if eval_every_steps and i % eval_every_steps == 0 and i < total_steps:
+            t_eval = time.perf_counter()
+            val = evaluator(state)
+            evals.append((i, val))
+            emit(json.dumps({"step": i, evaluator.metric_name: val}))
+            shift = time.perf_counter() - t_eval
+            if t_timed is not None:
+                t_timed += shift
+            t_last += shift
+    bad_tracker.drain()
     _sync(device)
+    t_end = time.perf_counter()
     if ckpt is not None and total_steps > start:
         ckpt.maybe_save(state, force=True)
 
@@ -130,15 +400,30 @@ def run(config: TrainConfig, *, device=None, warmup_steps: int = 2,
         "final_metrics": {k: float(v) for k, v in metrics.items()},
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu"),
+        "precision": resolve_precision(config).describe(),
+        "bad_steps": bad_tracker.total,
     }
     timed_steps = total_steps - start - warmup
     if t_timed is not None and timed_steps > 0:
-        elapsed = time.perf_counter() - t_timed
+        elapsed = t_end - t_timed
         examples = timed_steps * config.global_batch_size
         summary["examples_per_sec"] = examples / elapsed
         if not _is_image(config):
             summary["tokens_per_sec"] = (examples * config.data.seq_len
                                          / elapsed)
         summary["steps_per_sec"] = timed_steps / elapsed
-    emit(json.dumps({"summary": summary}))
+    if evaluator is not None:
+        final_val = evaluator(state)
+        evals.append((end_step, final_val))
+        name = evaluator.metric_name
+        summary[name] = final_val
+        summary["best_" + name.removeprefix("eval_")] = evaluator.best(
+            v for _, v in evals)
+        summary["evals"] = evals
+        if name == "eval_loss":
+            summary["eval_ppl"] = math.exp(min(final_val, 30.0))
+    if not _ramp_stage:
+        emit(json.dumps({"summary": summary}))
+    if return_state:
+        summary["state"] = state
     return summary

@@ -1,6 +1,7 @@
-"""The train step: the one-card counterpart of the replicated branch of
-``make_dp_train_step`` (``distributeddeeplearning_tpu/train/steps.py``) with
-one data-parallel replica, no ZeRO, no loss scaling and no bad-step guard.
+"""The train and eval steps: the one-card counterpart of the replicated
+branch of ``make_dp_train_step`` (``distributeddeeplearning_tpu/train/
+steps.py``) with one data-parallel replica and no ZeRO, and of its
+``make_dp_eval_step`` and ``make_token_eval_step``.
 
 Forward, loss, backward, optional global-norm clip and the optimizer
 update. The loss follows the model's input kind, as the JAX package's
@@ -9,19 +10,40 @@ image models (whose train-mode forward also updates the BatchNorm running
 buffers), causal-LM loss for token models. Dropout draws from a CPU
 generator seeded by (seed, step), as the JAX step folds the step into its
 dropout key, so a resumed run drops what an unbroken one would.
+
+Around the update, as the JAX step has them:
+
+- **dynamic loss scaling** (``PrecisionPolicy.loss_scale`` > 0): backward
+  runs on ``loss * scale``; the gradients are checked for overflow (a
+  non-finite squared norm, ``_tree_sq_norm``) while still scaled, then
+  divided by the scale; an overflow skips the update and ``next_loss_scale``
+  halves the scale, ``growth_interval`` good steps double it;
+- **the bad-step guard** (``bad_step_guard``): a non-finite loss or
+  gradient skips the update and reports ``bad_step``; it is not armed on a
+  step the scaler already skipped;
+- **skipping** keeps the parameters, the optimizer state (and so its count,
+  ``TrainState.updates``, which the schedule reads), the BatchNorm running
+  buffers (restored from a copy taken before the forward) and the EMA;
+  ``step`` still advances. Whether to skip is read on the host, one wait
+  for the device a step, as ``torch.amp.GradScaler`` does;
+- **the EMA** (``optimizer.ema_decay`` > 0): ``e <- d * e + (1 - d) * p``
+  after each applied update, over the parameters only.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
+import numpy as np
 import torch
+from torch.func import functional_call
 
-from distributeddeeplearning_tpu_torch.config import TrainConfig
+from distributeddeeplearning_tpu_torch.config import (
+    PrecisionPolicy, TrainConfig, resolve_precision)
 from distributeddeeplearning_tpu_torch.data.synthetic import step_seed
 from distributeddeeplearning_tpu_torch.models import model_spec
 from distributeddeeplearning_tpu_torch.train.losses import (
-    causal_lm_loss, smoothed_softmax_ce, top1_accuracy)
+    causal_lm_loss, causal_lm_loss_sums, smoothed_softmax_ce, top1_accuracy)
 from distributeddeeplearning_tpu_torch.train.optim import (
     Schedule, clip_by_global_norm_)
 from distributeddeeplearning_tpu_torch.train.state import TrainState
@@ -36,15 +58,77 @@ def dropout_rng(seed: int, step: int) -> torch.Generator:
         step_seed(seed, step, _DROPOUT_STREAM))
 
 
+def init_loss_scale(config: TrainConfig, device) -> Optional[dict]:
+    """The dynamic loss scale's initial ``{"scale", "good_steps"}``
+    (float32 and int32 scalars on ``device``) when the policy arms scaling,
+    else None."""
+    policy = resolve_precision(config)
+    if policy.loss_scale <= 0:
+        return None
+    return {"scale": torch.tensor(policy.loss_scale, dtype=torch.float32,
+                                  device=device),
+            "good_steps": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def next_loss_scale(policy: PrecisionPolicy, scale: torch.Tensor,
+                    good_steps: torch.Tensor, overflow: torch.Tensor
+                    ) -> tuple[dict, dict]:
+    """The dynamic-scale automaton (JAX ``_next_loss_scale``): an overflow
+    halves the scale, floored at ``loss_scale_min``; ``growth_interval``
+    consecutive good steps double it, capped at ``loss_scale_max``. Returns
+    (new state, metrics ``loss_scale`` and ``loss_scale_skip``)."""
+    good = good_steps + 1
+    grow = good >= policy.loss_scale_growth_interval
+    new_scale = torch.where(
+        overflow, torch.clamp_min(scale * 0.5, policy.loss_scale_min),
+        torch.where(grow, torch.clamp_max(scale * 2.0,
+                                          policy.loss_scale_max), scale))
+    new_good = torch.where(overflow | grow, torch.zeros_like(good), good)
+    return ({"scale": new_scale, "good_steps": new_good},
+            {"loss_scale": new_scale,
+             "loss_scale_skip": overflow.to(torch.float32)})
+
+
+def tree_sq_norm(tensors) -> torch.Tensor:
+    """The squared norm of all ``tensors`` in float32: finite iff every
+    element is (a sum that overflows float32 flags too)."""
+    norms = torch._foreach_norm([t.float() for t in tensors])
+    return torch.stack(norms).square().sum()
+
+
+def ema_init(model) -> dict[str, torch.Tensor]:
+    """The EMA's start: a float32 copy of the parameters."""
+    return {n: p.detach().float().clone()
+            for n, p in model.named_parameters()}
+
+
+def ema_update_(ema: dict, model, decay: float) -> None:
+    """``e <- d * e + (1 - d) * p`` in place, with d and 1 - d rounded to
+    float32 as the JAX package's ``_ema_update`` takes them."""
+    d = np.float32(decay)
+    names = list(ema)
+    params = dict(model.named_parameters())
+    shadow = [ema[n] for n in names]
+    torch._foreach_mul_(shadow, float(d))
+    torch._foreach_add_(shadow, [params[n].detach() for n in names],
+                        alpha=float(np.float32(1.0) - d))
+
+
 def make_train_step(config: TrainConfig, schedule: Schedule
                     ) -> Callable[[TrainState, dict], dict]:
-    """``train_step(state, batch) -> {"loss", "lr"}`` (and ``accuracy``
-    for image models): one update of ``state`` in place. ``loss`` and
-    ``accuracy`` stay device tensors (reading them waits for the device);
-    ``lr`` is the rate this update used."""
+    """``train_step(state, batch) -> {"loss", "lr", ...}``: one step of
+    ``state`` in place. ``loss`` (unscaled) and ``accuracy`` (image models)
+    stay device tensors; ``lr`` is the rate of this step's update (of the
+    update it would have made, when skipped). With loss scaling the metrics
+    add ``loss_scale`` and ``loss_scale_skip``, with the guard
+    ``bad_step``."""
     clip = config.optimizer.grad_clip_norm
     smoothing = config.optimizer.label_smoothing
+    ema_decay = config.optimizer.ema_decay
     image = model_spec(config.model).input_kind == "image"
+    policy = resolve_precision(config)
+    scaling = policy.loss_scale > 0
+    guard = config.bad_step_guard
 
     def forward(model, step: int, batch: dict) -> dict:
         if image:
@@ -60,17 +144,96 @@ def make_train_step(config: TrainConfig, schedule: Schedule
 
     def train_step(state: TrainState, batch: dict) -> dict:
         model, opt = state.model, state.optimizer
+        buffers = saved = None
+        if scaling or guard:
+            buffers = list(model.buffers())
+            saved = [b.detach().clone() for b in buffers]
         metrics = forward(model, state.step, batch)
         loss = metrics["loss"]
         opt.zero_grad(set_to_none=True)
-        loss.backward()
-        if clip:
-            clip_by_global_norm_((p.grad for p in model.parameters()), clip)
-        lr = schedule(state.step)
-        for group in opt.param_groups:
-            group["lr"] = lr
-        opt.step()
+        if scaling:
+            scale = state.loss_scale["scale"]
+            (loss * scale).backward()
+        else:
+            loss.backward()
+        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        skip = None
+        if scaling:
+            overflow = ~torch.isfinite(tree_sq_norm(grads))
+            torch._foreach_div_(grads, scale)
+            state.loss_scale, ls_metrics = next_loss_scale(
+                policy, scale, state.loss_scale["good_steps"], overflow)
+            metrics.update(ls_metrics)
+            skip = overflow
+        if guard:
+            bad = ~torch.isfinite(loss.detach()) | ~torch.isfinite(
+                tree_sq_norm(grads))
+            if scaling:
+                bad = bad & ~overflow
+            metrics["bad_step"] = bad.to(torch.float32)
+            skip = bad if skip is None else skip | bad
+        lr = schedule(state.updates)
+        if skip is not None and bool(skip):
+            with torch.no_grad():
+                torch._foreach_copy_(buffers, saved)
+        else:
+            if clip:
+                clip_by_global_norm_(grads, clip)
+            for group in opt.param_groups:
+                group["lr"] = lr
+            opt.step()
+            state.updates += 1
+            if state.ema is not None:
+                ema_update_(state.ema, model, ema_decay)
         state.step += 1
         return {**metrics, "loss": loss.detach(), "lr": lr}
 
     return train_step
+
+
+def _eval_forward(state: TrainState, *args, **kwargs):
+    """The model in eval mode on ``args``, with the EMA's parameters in
+    place of the live ones when the state keeps an EMA (the live BatchNorm
+    running buffers either way); the model's mode is restored after."""
+    model = state.model
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            if state.ema is not None:
+                return functional_call(model, state.ema, args, kwargs)
+            return model(*args, **kwargs)
+    finally:
+        model.train(was_training)
+
+
+def make_eval_step(config: TrainConfig
+                   ) -> Callable[[TrainState, dict], dict]:
+    """Held-out top-1 of an image model: ``eval_step(state, batch) ->
+    {"correct", "total"}`` (device int64 scalars) with the running
+    statistics (eval mode) and, when kept, the EMA parameters."""
+    del config
+
+    def eval_step(state: TrainState, batch: dict) -> dict:
+        logits = _eval_forward(state, batch["image"])
+        label = batch["label"]
+        return {"correct": (logits.argmax(dim=-1) == label).sum(),
+                "total": torch.tensor(label.shape[0], device=label.device)}
+
+    return eval_step
+
+
+def make_token_eval_step(config: TrainConfig
+                         ) -> Callable[[TrainState, dict], dict]:
+    """Held-out causal-LM loss: ``eval_step(state, batch) -> {"loss_sum",
+    "count"}`` with dropout off and, when kept, the EMA parameters, so the
+    mean over any number of batches is exact."""
+    del config
+
+    def eval_step(state: TrainState, batch: dict) -> dict:
+        ids, mask = batch["input_ids"], batch.get("attention_mask")
+        logits = _eval_forward(state, ids, attention_mask=mask)
+        total, count = causal_lm_loss_sums(logits, ids, mask)
+        return {"loss_sum": total, "count": count}
+
+    return eval_step

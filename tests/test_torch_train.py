@@ -152,11 +152,15 @@ def test_resnet_three_sgd_updates_match_optax():
 
 
 def _train(tmp_path, name, steps, lines, model="gpt_tiny"):
+    # One step of warmup (one epoch of one step): the 2-step run's schedule
+    # then equals the 4-step run's over its two updates.
     cfg = tconfig.TrainConfig(
         model=model, global_batch_size=2, total_steps=steps, seed=7,
         log_every=1, attention_impl="flash" if model == "gpt_tiny" else None,
         fused_bn=model == "resnet_nano",
         checkpoint_dir=str(tmp_path / name), checkpoint_every_steps=2,
+        steps_per_epoch=1,
+        optimizer=tconfig.OptimizerConfig(warmup_epochs=1.0),
         data=tconfig.DataConfig(seq_len=16, image_size=16))
     return tloop.run(cfg, device="cpu", emit=lines.append)
 
@@ -302,10 +306,11 @@ def test_resnet_cli_without_a_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("argv", [["--dp", "2"], ["--accum", "4"],
-                                  ["--precision", "mixed"],
+                                  ["--sp", "2"],
                                   ["--pp", "2"],
                                   ["--tp", "2"],
-                                  ["--optimizer", "lars"], ["--fused-conv3"],
+                                  ["--optimizer-sharding", "zero1"],
+                                  ["--fused-conv3"],
                                   ["--sync-bn"]])
 def test_cli_refuses_flags_of_later_slices(argv):
     with pytest.raises((SystemExit, NotImplementedError)):
