@@ -105,7 +105,32 @@ Run from the root of a checkout. Phases:
    same weights and batch, with ``fused_bn`` and with ``fused_block`` +
    ``fused_conv3``: the unscaled gradients and running buffers must equal
    the unscaled step's bit for bit (or within 2^-20 of a tensor's largest
-   |ref|, each such tensor printed).
+   |ref|, each such tensor printed);
+21. data parallelism on one card: ``python -m torch.distributed.run
+   --standalone --nproc-per-node 1 -m distributeddeeplearning_tpu_torch.
+   train --model resnet50 --batch-size 512 --synthetic --fused-block
+   --fused-conv3 --sync-bn --dp 1`` for 6 steps, an NCCL group of one
+   process; #8-#10 36 and #11-#13 13 launches a step (the worker's own
+   counts, from its summary), no other kernel; losses finite, the first
+   within 0.3 of ln 1000; steps 1-2 profiled in the worker, where every
+   bucket of the plan (``plan_buckets`` of ResNet-50's parameters at 4 MB)
+   must run its ``allreduce/bucketNN`` once a step and no other bucket
+   runs; images/s, peak memory, the buckets' device ms. Then one f32 step
+   of ResNet-50 ``fused_block`` + ``fused_conv3`` at batch 32 through the
+   data-parallel step with sync BN (world 1, NCCL, in this process) against
+   the one-card step from the same weights and batch: the loss, every
+   gradient and running buffer and every updated parameter bit for bit (a
+   one-rank sum and a division by 1 are exact; cuDNN deterministic). NCCL
+   refuses two ranks on one GPU, so no world above 1 runs on one card:
+   those are held on the CPU with gloo (``tests/test_torch_dp.py``);
+22. the real 32k LARS update: ``--config resnet50_lars_32k --dp 1 --accum
+   64 --fused-block --fused-conv3`` for 2 updates, each 64 microbatches of
+   512 (global batch 32,768, bf16, LARS at the preset's lr); #8-#10 launch
+   36 x 64 and #11-#13 13 x 64 times an update, no other kernel; losses
+   finite; each lr the preset schedule's at the update count; the peak
+   memory less the global batch's images is within 10% of one batch-512
+   update's less its images (measured first, same flags, ``--accum 1``);
+   images/s of the timed update.
 
 Each phase prints its wall seconds. It prints a ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, "device": {...}}``. Any failed phase exits
@@ -131,7 +156,9 @@ import argparse
 import contextlib
 import io
 import json
+import os
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -264,6 +291,25 @@ RAMP_ARGV = ["--model", "resnet50", *RAMP_FLAGS, "--batch-ramp",
              str(RAMP_STAGE_STEPS), "--eval-batches", "1", "--steps",
              str(2 * RAMP_STAGE_STEPS), "--synthetic", "--log-every", "1",
              "--warmup-steps", "1", "--seed", str(SEED)]
+# Data parallelism on one card (phase 21): the training CLI under torchrun,
+# one NCCL rank, sync BN through #8-#13; steps 1-2 profiled (within the
+# three untimed warm-up steps).
+DP_PROFILED = (1, 3)
+DP_ARGV = ["--model", "resnet50", "--batch-size", str(RESNET_BATCH),
+           "--synthetic", "--fused-block", "--fused-conv3", "--sync-bn",
+           "--dp", "1", "--steps", str(RESNET_STEPS), "--log-every", "1",
+           "--seed", str(SEED), "--warmup-steps", "3", "--profile-steps",
+           ",".join(map(str, DP_PROFILED))]
+DP_TIMEOUT_S = 600
+# The 32k LARS update (phase 22): the preset's 32,768 images an update as 64
+# microbatches of 512 on one card.
+LARS_ACCUM, LARS_UPDATES = 64, 2
+LARS_FLAGS = ["--config", "resnet50_lars_32k", "--dp", "1", "--fused-block",
+              "--fused-conv3", "--synthetic", "--log-every", "1", "--seed",
+              str(SEED)]
+# Peak memory less the step's images may exceed one batch-512 update's by
+# this share.
+LARS_MEMORY_SLACK = 0.10
 # Loss scale 2^15 against none, one f32 step at batch 32: every backward
 # kernel is linear in dy and a power-of-two scale is exact, so the
 # unscaled gradients and the running buffers should equal the unscaled
@@ -2404,6 +2450,255 @@ def phase_scaled_step(failures) -> None:
         torch.backends.cudnn.deterministic = deterministic
 
 
+def run_process(cmd, timeout: float) -> subprocess.CompletedProcess:
+    """``cmd`` in a process group of its own, from the checkout's root; on
+    a timeout every process of the group is killed before this raises."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise
+    return subprocess.CompletedProcess(cmd, proc.returncode, out, err)
+
+
+def resnet50_bucket_plan():
+    """The bucket plan of ResNet-50's gradients at the default 4 MB, from
+    the parameters' names and shapes alone (built on the meta device)."""
+    import torch
+
+    from distributeddeeplearning_tpu_torch.models import model_spec
+    from distributeddeeplearning_tpu_torch.parallel import collectives
+
+    with torch.device("meta"):
+        model = model_spec("resnet50").build(dtype=torch.bfloat16)
+    return collectives.plan_buckets(dict(model.named_parameters()))
+
+
+def phase_dp_train(kernels, failures, scratch: Path) -> dict:
+    """Phase 21, the data-parallel path on one card: the training CLI under
+    ``torchrun`` in an NCCL group of one, ResNet-50 ``--fused-block
+    --fused-conv3 --sync-bn`` at batch 512. The worker's summary holds its
+    kernel launches and peak memory, its profile file the
+    ``allreduce/bucketNN`` ranges of steps 1-2."""
+    from distributeddeeplearning_tpu_torch.ops import fused_conv_bn as fcbn
+    from distributeddeeplearning_tpu_torch.ops import fused_linear_bn as flbn
+
+    profile_dir = scratch / "dp_profile"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "1", "-m",
+           "distributeddeeplearning_tpu_torch.train", *DP_ARGV,
+           "--profile-dir", str(profile_dir)]
+    t0 = time.perf_counter()
+    done = run_process(cmd, DP_TIMEOUT_S)
+    wall_s = time.perf_counter() - t0
+    lines = []
+    for line in done.stdout.splitlines():
+        with contextlib.suppress(ValueError):
+            lines.append(json.loads(line))
+    metrics, _, summary = split_lines(lines) if lines else ([], [], {})
+    losses = [x["loss"] for x in metrics]
+    launches = summary.get("kernel_launches", {})
+    per_step = {flbn: RESNET_LINEAR_LAYERS, fcbn: RESNET_CONV3_LAYERS}
+    expected = {k["name"]: per_step.get(k["module"], 0) * RESNET_STEPS
+                for k in kernels}
+    plan = resnet50_bucket_plan()
+    want = {f"allreduce/bucket{b:02d}" for b in range(len(plan.buckets))}
+    steps_profiled = DP_PROFILED[1] - DP_PROFILED[0]
+    ranges, device = {}, {}
+    profile_file = profile_dir / "profile_rank0.json"
+    if profile_file.exists():
+        profile = json.loads(profile_file.read_text())
+        ranges, device = profile["ranges"], profile["kernels"]
+    buckets = {k: v for k, v in ranges.items()
+               if k.startswith("allreduce/bucket")}
+    nccl = {k: v for k, v in device.items() if "nccl" in k.lower()}
+
+    def a_step(entries, key="device_ms"):
+        return sum(v[key] for v in entries.values()) / steps_profiled
+
+    record = {"wall_s": wall_s, "rc": done.returncode, "launches": launches,
+              "losses": losses, "plan": plan.describe(),
+              "buckets": len(buckets),
+              "bucket_device_ms_a_step": a_step(buckets),
+              "bucket_host_ms_a_step": a_step(buckets, "cpu_ms"),
+              "busy_ms_a_step": a_step(device),
+              "nccl_kernel_ms_a_step": a_step(nccl),
+              "nccl_kernels_a_step": a_step(nccl, "count"),
+              "bucket_counts": {k: v["count"] for k, v in buckets.items()},
+              "peak_memory_gb": summary.get("peak_memory_gb"),
+              "images_per_sec": summary.get("examples_per_sec"),
+              "data_parallel": summary.get("data_parallel")}
+    log("# resnet50 --fused-block --fused-conv3 --sync-bn under torchrun "
+        "(NCCL, world 1): " + json.dumps(record))
+    if done.returncode != 0:
+        failures.append(f"torchrun DP run exited {done.returncode}: "
+                        f"{done.stderr[-3000:]}")
+        return record
+    if launches != expected:
+        failures.append(f"DP path launches {launches}, expected {expected}")
+    if (len(losses) != RESNET_STEPS
+            or not all(np.isfinite(x) for x in losses)
+            or abs(losses[0] - np.log(RESNET_CLASSES))
+            > RESNET_FIRST_LOSS_TOL):
+        failures.append(f"DP losses {losses}: need {RESNET_STEPS} finite, "
+                        f"the first within {RESNET_FIRST_LOSS_TOL} of ln "
+                        f"{RESNET_CLASSES}")
+    dp = summary.get("data_parallel") or {}
+    if dp.get("world") != 1 or dp.get("backend") != "nccl":
+        failures.append(f"DP run not in an NCCL group of one: {dp}")
+    if set(buckets) != want or any(
+            v["count"] != steps_profiled for v in buckets.values()):
+        failures.append(f"DP profile buckets {record['bucket_counts']}, "
+                        f"want each of {sorted(want)} {steps_profiled} "
+                        f"times")
+    if not summary.get("examples_per_sec"):
+        failures.append(f"DP summary without images/s: {summary}")
+    return record
+
+
+def phase_dp_bitwise(failures, scratch: Path) -> None:
+    """Phase 21's second part: one f32 step of ResNet-50 ``fused_block`` +
+    ``fused_conv3`` at batch 32 through the data-parallel step with sync BN
+    (an NCCL group of one, in this process) against the one-card step,
+    from the same weights and batch: loss, gradients, running buffers and
+    updated parameters bit for bit."""
+    import torch
+    import torch.distributed as dist
+
+    from distributeddeeplearning_tpu_torch import config as cfglib
+    from distributeddeeplearning_tpu_torch.data.synthetic import (
+        SyntheticImages)
+    from distributeddeeplearning_tpu_torch.parallel.process_group import (
+        DataParallel)
+    from distributeddeeplearning_tpu_torch.train import loop, steps
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", init_method=f"file://{scratch / 'nccl_rendezvous'}", rank=0,
+        world_size=1)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        batch = SyntheticImages(FUSED_BATCH, RESNET_IMAGE, RESNET_CLASSES,
+                                SEED + 11, "cuda").batch(0)
+        base = cfglib.TrainConfig(
+            model="resnet50", global_batch_size=FUSED_BATCH, total_steps=2,
+            seed=SEED + 12, dtype="float32", fused_block=True,
+            fused_conv3=True)
+        runs = []
+        for config, dp in ((base, None),
+                           (base.replace(sync_bn=True), DataParallel(0, 1))):
+            state, sched = loop.build_state(config, torch.device("cuda"))
+            if runs:
+                state.model.load_state_dict(runs[0][1])
+            weights = {k: v.clone() for k, v in
+                       state.model.state_dict().items()}
+            metrics = steps.make_train_step(config, sched, dp)(state, batch)
+            runs.append((float(metrics["loss"]), weights,
+                         {f"grad {n}": p.grad.clone() for n, p in
+                          state.model.named_parameters()}
+                         | {f"after {k}": v.clone() for k, v in
+                            state.model.state_dict().items()}))
+            del state
+            torch.cuda.empty_cache()
+        (loss_1, _, one), (loss_dp, _, dp_run) = runs
+        differ = [k for k in one if not torch.equal(one[k], dp_run[k])]
+        log(f"# resnet50 f32 step, fused_block+fused_conv3, DP with sync BN "
+            f"(NCCL, world 1) vs one card (batch {FUSED_BATCH}): losses "
+            f"{loss_dp!r} / {loss_1!r}, {len(one) - len(differ)} of "
+            f"{len(one)} tensors bit for bit; differing: {differ}")
+        if loss_dp != loss_1 or differ:
+            failures.append(f"DP world-1 step differs from the one-card "
+                            f"step: losses {loss_dp} / {loss_1}, tensors "
+                            f"{differ}")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        dist.destroy_process_group()
+
+
+def phase_lars_32k(kernels, failures) -> dict:
+    """Phase 22, the real 32k LARS update on one card: the
+    ``resnet50_lars_32k`` preset at ``--dp 1 --accum 64 --fused-block
+    --fused-conv3``, 2 updates of 64 microbatches of 512. First one update
+    at batch 512 (``--accum 1``) for its peak memory; then the 32k run:
+    #8-#10 36 x 64 and #11-#13 13 x 64 launches an update, no other
+    kernel; losses finite; each lr the schedule's at the update count; the
+    peak memory less the images of its global batch within
+    LARS_MEMORY_SLACK of the batch-512 update's less its images."""
+    import torch
+
+    from distributeddeeplearning_tpu_torch.ops import fused_conv_bn as fcbn
+    from distributeddeeplearning_tpu_torch.ops import fused_linear_bn as flbn
+    from distributeddeeplearning_tpu_torch.train import cli as train_cli
+    from distributeddeeplearning_tpu_torch.train import loop
+
+    def image_gb(batch: int) -> float:   # bf16 NHWC images and int64 labels
+        return batch * (RESNET_IMAGE * RESNET_IMAGE * 3 * 2 + 8) / 1e9
+
+    small = [*LARS_FLAGS, "--accum", "1", "--batch-size", str(RESNET_BATCH),
+             "--steps", "1"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run_train_cli(small)
+    torch.cuda.synchronize()
+    peak_512 = torch.cuda.max_memory_allocated() / 1e9
+    argv = [*LARS_FLAGS, "--accum", str(LARS_ACCUM), "--steps",
+            str(LARS_UPDATES)]
+    config = train_cli.build_config(train_cli.parse_args(argv))
+    per_update = {flbn: RESNET_LINEAR_LAYERS * LARS_ACCUM,
+                  fcbn: RESNET_CONV3_LAYERS * LARS_ACCUM}
+    expected = {k["name"]: per_update.get(k["module"], 0) * LARS_UPDATES
+                for k in kernels}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    lines = run_train_cli(argv)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = read_counts(kernels)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    metrics, _, summary = split_lines(lines)
+    losses = [x["loss"] for x in metrics]
+    lrs = [x["lr"] for x in metrics]
+    sched = loop.run_schedule(config)
+    want = [sched(k) for k in range(LARS_UPDATES)]
+    batch = config.global_batch_size
+    record = {"global_batch": batch, "accum": LARS_ACCUM,
+              "microbatch": batch // LARS_ACCUM, "cli_s": cli_s,
+              "launches": launches, "losses": losses, "lrs": lrs,
+              "want_lrs": want, "peak_memory_gb": peak,
+              "peak_memory_gb_batch512_update": peak_512,
+              "images_gb": image_gb(batch),
+              "images_per_sec": summary.get("examples_per_sec"),
+              "update_s": (batch / summary["examples_per_sec"]
+                           if summary.get("examples_per_sec") else None)}
+    log("# resnet50_lars_32k --dp 1 --accum 64 --fused-block --fused-conv3: "
+        + json.dumps(record))
+    if launches != expected:
+        failures.append(f"32k LARS launches {launches}, expected {expected}")
+    if len(losses) != LARS_UPDATES or not all(np.isfinite(x)
+                                              for x in losses):
+        failures.append(f"32k LARS losses {losses}: need {LARS_UPDATES} "
+                        f"finite")
+    if len(lrs) != len(want) or any(
+            abs(a - b) > 1e-12 + 1e-9 * abs(b) for a, b in zip(lrs, want)):
+        failures.append(f"32k LARS lrs {lrs}, want {want}")
+    if peak - image_gb(batch) > (1 + LARS_MEMORY_SLACK) * (
+            peak_512 - image_gb(RESNET_BATCH)):
+        failures.append(f"32k LARS peak {peak:.2f} GB less its images "
+                        f"{image_gb(batch):.2f} GB is beyond a batch-512 "
+                        f"update's {peak_512:.2f} GB less its images")
+    if not summary.get("examples_per_sec"):
+        failures.append(f"32k LARS summary without images/s: {summary}")
+    return record
+
+
 def main() -> int:
     import torch
 
@@ -2528,6 +2823,9 @@ def main() -> int:
                     large["profile"].get("device_busy_us"),
                     large["profile"].get("peak_memory_gb")]}))
         timed("scaled_vs_unscaled_step", phase_scaled_step, failures)
+        timed("dp_train", phase_dp_train, kernels, failures, scratch)
+        timed("dp_vs_one_card_step", phase_dp_bitwise, failures, scratch)
+        timed("resnet50_lars_32k", phase_lars_32k, kernels, failures)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     log(f"# total: {time.perf_counter() - t_start:.2f} s")

@@ -1,8 +1,9 @@
 """Run configuration of the port: the subset of the JAX package's
 ``TrainConfig``/``DataConfig``/``OptimizerConfig``/``ParallelConfig``/
-``PrecisionPolicy`` (``distributeddeeplearning_tpu/config.py``) that one-card
-training of the causal LMs, the ResNets and the DenseNets reads, with the
-same field names and defaults, and the acceptance presets (``preset``).
+``PrecisionPolicy``/``AllReduceConfig`` (``distributeddeeplearning_tpu/
+config.py``) that training of the causal LMs, the ResNets and the DenseNets
+on one card, and of the image models data-parallel, reads, with the same
+field names and defaults, and the acceptance presets (``preset``).
 
 One default differs: ``TrainConfig.model`` is ``gpt2_small`` (the JAX
 default is a ResNet); every preset names its model. The token data is
@@ -23,11 +24,11 @@ from typing import Any, Optional
 
 @dataclasses.dataclass(frozen=True)
 class ParallelConfig:
-    """Device-mesh layout, under the JAX names. The one-card port runs
-    every axis at 1 and refuses more (``train/loop.py``
-    ``check_one_card``); the presets carry their layouts across so a flag
-    can bring them to one card, as ``train.py`` lets flags override a
-    preset."""
+    """Device-mesh layout, under the JAX names. The port runs ``data`` at
+    the world size of its process group (image models) and every other
+    axis at 1, and refuses the rest (``train/loop.py`` ``check_layout``);
+    the presets carry their layouts across so a flag can bring them to the
+    run's world, as ``train.py`` lets flags override a preset."""
 
     data: int = 1       # dp: batch sharding, gradient all-reduce
     fsdp: int = 1       # parameter sharding along the data axis family
@@ -46,8 +47,9 @@ class PrecisionPolicy:
     - ``param_dtype``: the master weights and optimizer state; must stay
       ``float32`` (a bf16 master drops every update below ~2^-8 of the
       weight);
-    - ``reduce_dtype``: the gradient all-reduce payload (no reduction runs
-      on one card; kept so a policy carries across);
+    - ``reduce_dtype``: the gradient all-reduce payload of the
+      data-parallel step (an explicit policy overrides
+      ``AllReduceConfig.dtype`` with it, as the JAX step does);
     - ``loss_scale``: the initial dynamic loss scale, 0 = off. The loss is
       multiplied by the scale before backward and the gradients divided
       after; a non-finite scaled gradient skips the update and halves the
@@ -125,6 +127,26 @@ def resolve_precision(config: "TrainConfig") -> PrecisionPolicy:
 
 
 @dataclasses.dataclass(frozen=True)
+class AllReduceConfig:
+    """Gradient all-reduce policy of the data-parallel step
+    (``parallel/collectives.py``): gradients packed into size-targeted
+    buckets, one collective per bucket instead of one per parameter."""
+
+    bucket_mb: float = 4.0        # fusion-buffer target size; 0 = per-leaf
+                                  # reduction (the unfused A/B baseline)
+    dtype: str = "float32"        # reduction payload: float32 (grads' own
+                                  # dtype) | bfloat16 (half the wire bytes;
+                                  # fp32 masters restored after the reduce)
+    algorithm: str = "psum"       # psum (one all-reduce) | ring
+                                  # (reduce-scatter + all-gather)
+
+    def describe(self) -> str:
+        mode = (f"fused bucket_mb={self.bucket_mb:g}" if self.bucket_mb > 0
+                else "per-leaf")
+        return f"{mode} dtype={self.dtype} algo={self.algorithm}"
+
+
+@dataclasses.dataclass(frozen=True)
 class OptimizerConfig:
     """Optimizer + schedule (SGD-momentum default; LARS for large-batch
     ResNet, LAMB for large-batch transformers)."""
@@ -159,7 +181,8 @@ class DataConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """One training run on one card."""
+    """One training run: on one card, or data-parallel over the ranks of a
+    ``torch.distributed`` process group."""
 
     model: str = "gpt2_small"
     global_batch_size: int = 32
@@ -175,7 +198,9 @@ class TrainConfig:
                                   # the last (no :steps) to the horizon and
                                   # equal to global_batch_size; the lr
                                   # follows the linear-scaling rule a stage
-    grad_accum_steps: int = 1     # microbatches per optimizer step
+    grad_accum_steps: int = 1     # microbatches per optimizer step (of
+                                  # each rank's shard)
+    sync_bn: bool = False         # cross-replica BatchNorm statistics
     seed: int = 0
     log_every: int = 100
     eval_every_epochs: float = 1.0
@@ -196,6 +221,26 @@ class TrainConfig:
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     optimizer: OptimizerConfig = dataclasses.field(
         default_factory=OptimizerConfig)
+    allreduce: AllReduceConfig = dataclasses.field(
+        default_factory=AllReduceConfig)
+
+    @property
+    def per_device_batch(self) -> int:
+        """The global batch over the data-parallel shards, which must
+        divide it, as must ``grad_accum_steps`` the shard's batch (JAX's
+        messages, with the flag that sets each)."""
+        shards = self.parallel.data * self.parallel.fsdp
+        if self.global_batch_size % max(shards, 1):
+            raise ValueError(
+                f"global_batch_size={self.global_batch_size} not divisible by "
+                f"data-parallel shards={shards} (--dp {self.parallel.data})")
+        per_device = self.global_batch_size // max(shards, 1)
+        if self.grad_accum_steps > 1 and per_device % self.grad_accum_steps:
+            raise ValueError(
+                f"per-device batch {per_device} not divisible by "
+                f"grad_accum_steps={self.grad_accum_steps} "
+                f"(--accum {self.grad_accum_steps})")
+        return per_device
 
     def replace(self, **kw: Any) -> "TrainConfig":
         return dataclasses.replace(self, **kw)

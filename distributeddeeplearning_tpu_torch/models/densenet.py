@@ -10,6 +10,8 @@ from N(0, 2/fan_out), the classifier from a fan-in truncated normal, as in
 ``models/resnet.py``. Every BatchNorm is flax's (momentum 0.9, eps 1e-5,
 statistics in float32), composed plainly by ``resnet.BatchNormAct``: the
 JAX DenseNet has no fused BatchNorm path, so neither has this one.
+``bn_axis_name`` averages every BatchNorm's statistics across the ranks in
+training, as in ``models/resnet.py``.
 
 Module names follow the flax tree (``conv_stem``, ``bn_stem``,
 ``block{i}_layer{j}.{bn1,conv1,bn2,conv2}``, ``transition{i}_{bn,conv}``,
@@ -32,7 +34,7 @@ from torch import nn
 
 from distributeddeeplearning_tpu_torch.models.layers import Dense
 from distributeddeeplearning_tpu_torch.models.resnet import (
-    _TRUNC_STD, BatchNormAct, Conv, _later)
+    _TRUNC_STD, BatchNormAct, Conv, set_bn_axis_name)
 
 
 class DenseLayer(nn.Module):
@@ -58,8 +60,6 @@ class DenseNet(nn.Module):
                  dtype: torch.dtype = torch.bfloat16,
                  bn_axis_name: Optional[str] = None):
         super().__init__()
-        _later("bn_axis_name", bn_axis_name, "data parallelism "
-               "(cross-replica BatchNorm statistics)")
         self.dtype = dtype
         self.conv_stem = Conv(3, num_init_features, 7, 2, 3, dtype=dtype)
         self.bn_stem = BatchNormAct(num_init_features, dtype=dtype)
@@ -81,6 +81,7 @@ class DenseNet(nn.Module):
         nn.init.trunc_normal_(self.classifier.weight, 0.0, std, -2 * std,
                               2 * std)
         nn.init.zeros_(self.classifier.bias)
+        set_bn_axis_name(self, bn_axis_name)
 
     def forward(self, x):
         """x: (B, H, W, 3) images -> (B, num_classes) float32 logits."""

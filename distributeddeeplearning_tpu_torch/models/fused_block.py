@@ -20,7 +20,11 @@ What stays plain PyTorch, as it stays jnp/XLA in the reference: without
 the 3x3 itself (``F.conv2d`` on channels_last) and bn2's statistics; and
 always the downsample's apply and the block exit relu(bn3 apply +
 shortcut). A BatchNorm's mean and biased variance come from its sums as
-``max(E[y^2] - mean^2, 0)``, then flax's running update.
+``max(E[y^2] - mean^2, 0)``, then flax's running update. Under cross-replica
+BatchNorm (the block's BatchNorms' ``axis_name``) the mean and E[y^2] from
+the kernels' sums are averaged over the ranks first, as the JAX block's
+``_stats`` pmeans them; their gradients flow back through the same mean
+into the backward kernels.
 
 Parameters and buffers are ``BottleneckBlock``'s, under the same names, so
 one checkpoint drives either block. Evaluation runs ``BottleneckBlock``'s
@@ -32,7 +36,7 @@ from __future__ import annotations
 import torch
 
 from distributeddeeplearning_tpu_torch.models.resnet import (
-    BatchNormAct, BottleneckBlock, Conv)
+    BatchNormAct, BottleneckBlock, Conv, moments)
 from distributeddeeplearning_tpu_torch.ops.fused_batchnorm import as_rows
 from distributeddeeplearning_tpu_torch.ops.fused_conv_bn import (
     bn_conv3x3_stats)
@@ -53,10 +57,11 @@ def _kernel3(conv: Conv) -> torch.Tensor:
 
 
 def _batch_stats(bn: BatchNormAct, s, ss, m: int):
-    """(mean, inv) of a BatchNorm from its sums over m rows, after flax's
-    running update with (mean, biased var)."""
-    mean = s / m
-    var = (ss / m - mean * mean).clamp_min(0.0)
+    """(mean, inv) of a BatchNorm from its sums over m rows (averaged over
+    the ranks under its ``axis_name``), after flax's running update with
+    (mean, biased var)."""
+    mean, ex2 = moments(s / m, ss / m, bn.axis_name)
+    var = (ex2 - mean * mean).clamp_min(0.0)
     bn.update_running(mean.detach(), var.detach())
     return mean, torch.rsqrt(var + bn.eps)
 

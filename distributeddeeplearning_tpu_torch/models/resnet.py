@@ -29,6 +29,16 @@ convolutions carry the BatchNorm work through the matmul kernels of
 ``fused_conv3=True`` (with ``fused_block`` only) also runs each stride-1
 block's 3x3 through the kernels of ``ops/fused_conv_bn.py``. All create the
 same variables.
+
+``bn_axis_name`` (any name, ``"data"`` by the JAX convention) turns on
+cross-replica BatchNorm in training, flax's ``axis_name``: each BatchNorm's
+batch mean and mean of squares are averaged over the ranks of the default
+``torch.distributed`` process group (``parallel/collectives.py``
+``cross_replica_mean``, a sum all-reduce divided by the world size, forward
+and backward) before the variance, the normalisation and the running
+update. Without an initialised group a training forward raises. Under
+``fused_block`` the block's 1x1 and 3x3 kernels' sums are averaged so; with
+``fused_bn`` it is refused, as the JAX model refuses it.
 """
 
 from __future__ import annotations
@@ -43,26 +53,39 @@ from torch import nn
 from distributeddeeplearning_tpu_torch.models.layers import Dense
 from distributeddeeplearning_tpu_torch.ops.fused_batchnorm import (
     FusedBatchNormAct)
+from distributeddeeplearning_tpu_torch.parallel.collectives import (
+    cross_replica_mean)
 
 # flax's variance_scaling(1.0, "fan_in", "truncated_normal") draws from a
 # normal truncated at two standard deviations, and divides the standard
 # deviation by that distribution's own (0.87962566...) so the variance stays
 # 1/fan_in.
 _TRUNC_STD = 0.87962566103423978
+# The JAX model's refusal of cross-replica statistics with fused_bn.
+SYNC_BN_WITH_FUSED_BN = (
+    "sync_bn is not supported with fused_bn (the fused kernel computes "
+    "statistics inside its custom VJP); use --sync-bn with the default BN "
+    "or --fused-block")
 
 
 class BatchNormAct(FusedBatchNormAct):
     """flax ``nn.BatchNorm`` [+ residual] [+ ReLU], composed plainly: the
     path without ``fused_bn``. Runs no kernel; any layout. Statistics and
     the affine run in at least float32 (float64 stays float64), as flax's
-    ``_compute_stats`` promotes."""
+    ``_compute_stats`` promotes. With ``axis_name`` set, training takes
+    the cross-replica mean of the batch mean and mean of squares, as
+    flax's ``pmean`` of both does."""
+
+    axis_name: Optional[str] = None
 
     def forward(self, x, residual=None):
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         shape = (1, -1, 1, 1)
         if self.training:
-            mean = xf.mean(dim=(0, 2, 3))
-            var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+            mean, ex2 = moments(xf.mean(dim=(0, 2, 3)),
+                                (xf * xf).mean(dim=(0, 2, 3)),
+                                self.axis_name)
+            var = (ex2 - mean * mean).clamp_min(0.0)
             self.update_running(mean.detach(), var.detach())
         else:
             mean, var = self.running_mean, self.running_var
@@ -72,6 +95,22 @@ class BatchNormAct(FusedBatchNormAct):
         if residual is not None:
             y = y + residual
         return F.relu(y) if self.relu else y
+
+
+def moments(mean: torch.Tensor, ex2: torch.Tensor,
+            axis_name: Optional[str]) -> tuple[torch.Tensor, torch.Tensor]:
+    """(mean, E[x^2]) of a BatchNorm's batch: this replica's, or with
+    ``axis_name`` the cross-replica mean of both, in one all-reduce."""
+    if axis_name is None:
+        return mean, ex2
+    return cross_replica_mean(torch.stack([mean, ex2])).unbind(0)
+
+
+def set_bn_axis_name(model: nn.Module, axis_name: Optional[str]) -> None:
+    """Point every plain BatchNorm of ``model`` at ``axis_name``."""
+    for module in model.modules():
+        if isinstance(module, BatchNormAct):
+            module.axis_name = axis_name
 
 
 class Conv(nn.Module):
@@ -152,12 +191,6 @@ class BasicBlock(nn.Module):
         return self.bn2(y, residual)
 
 
-def _later(flag: str, value, slice_name: str) -> None:
-    if value:
-        raise NotImplementedError(f"{flag}={value!r} is not carried by the "
-                                  f"port yet; it comes with {slice_name}")
-
-
 class ResNet(nn.Module):
     """ImageNet ResNet: ``stage_sizes`` picks the depth; NHWC images in,
     float32 logits out."""
@@ -168,8 +201,8 @@ class ResNet(nn.Module):
                  fused_block: bool = False, fused_conv3: bool = False,
                  bn_axis_name: Optional[str] = None):
         super().__init__()
-        _later("bn_axis_name", bn_axis_name, "data parallelism "
-               "(cross-replica BatchNorm statistics)")
+        if fused_bn and bn_axis_name is not None:
+            raise ValueError(SYNC_BN_WITH_FUSED_BN)
         if fused_block and block is not BottleneckBlock:
             raise ValueError("fused_block requires bottleneck blocks "
                              "(resnet50/101/152); basic blocks have no 1x1 "
@@ -203,6 +236,7 @@ class ResNet(nn.Module):
         nn.init.trunc_normal_(self.classifier.weight, 0.0, std, -2 * std,
                               2 * std)
         nn.init.zeros_(self.classifier.bias)
+        set_bn_axis_name(self, bn_axis_name)
 
     def forward(self, x):
         """x: (B, H, W, 3) images -> (B, num_classes) float32 logits."""

@@ -45,12 +45,10 @@ class Checkpointer:
         os.replace(tmp, path)
         return path
 
-    def maybe_save(self, state: TrainState, *, force: bool = False
-                   ) -> Optional[Path]:
-        """Save at every ``every_steps``-th step, or when forced."""
-        if force or (self.every > 0 and state.step % self.every == 0):
-            return self.save(state)
-        return None
+    def due(self, step: int, *, force: bool = False) -> bool:
+        """Whether a checkpoint is written after ``step``: every
+        ``every_steps``-th step, or when forced."""
+        return force or (self.every > 0 and step % self.every == 0)
 
     def _load_latest(self, state: TrainState) -> Optional[dict]:
         step = self.latest_step()

@@ -1,5 +1,6 @@
 """Training CLI of the PyTorch port: causal-LM, ResNet and DenseNet
-training on one card.
+training on one card, and the image models data-parallel over the ranks of
+a ``torchrun`` launch.
 
     python -m distributeddeeplearning_tpu_torch.train --model gpt2_small \
         --batch-size 16 --seq-len 1024 --attn flash --synthetic --steps 100
@@ -16,19 +17,28 @@ training on one card.
         --fused-block --fused-conv3 --precision mixed --optimizer lars \
         --batch-ramp 256:300,512 --batch-size 512 --checkpoint-dir ckpt \
         --checkpoint-every 300 --synthetic --steps 1000
+    python -m torch.distributed.run --standalone --nproc-per-node 8 -m \
+        distributeddeeplearning_tpu_torch.train --config resnet50_dp \
+        --fused-block --fused-conv3 --sync-bn --synthetic --steps 100
+    python -m distributeddeeplearning_tpu_torch.train --config \
+        resnet50_lars_32k --dp 1 --accum 64 --fused-block --fused-conv3 \
+        --synthetic --steps 10
 
 The counterpart of the root ``train.py`` for these models, with its flags
 where they apply: a preset by name (``--config``, ``--list-configs``)
 whose fields the flags override, precision policies with dynamic loss
 scaling, sgd/lars/adamw/lamb, an EMA of the weights, a staged batch ramp,
-held-out eval (``--eval-batches``, ``--eval-only``) and the bad-step
-guard. Data is synthetic token ids or images made on the device; weights
-start random from ``--seed``. Prints one JSON metric line per log step and
-a final ``{"summary": ...}`` line. Runs on the GPU unless ``--device cpu``
-is given. Without ``--steps`` an image run lasts ``--epochs`` ImageNet
-epochs. Flags and presets of later slices (a mesh axis above 1,
-accumulation, SyncBN, ZeRO, real data, BERT) raise instead of being
-ignored.
+held-out eval (``--eval-batches``, ``--eval-only``), the bad-step guard,
+data parallelism (``--dp N`` under ``torchrun --nproc-per-node N``: NCCL
+on the card, gloo with ``--device cpu``; the bucketed gradient all-reduce,
+``--allreduce-*``; ``--sync-bn``), gradient accumulation (``--accum``) and
+a profile of a few steps (``--profile-steps``). Data is synthetic token ids
+or images made on the device; weights start random from ``--seed``. Rank 0
+prints one JSON metric line per log step and a final ``{"summary": ...}``
+line. Runs on the GPU unless ``--device cpu`` is given. Without
+``--steps`` an image run lasts ``--epochs`` ImageNet epochs. Flags and
+presets of later slices (a mesh axis other than data above 1, ZeRO, real
+data, BERT) raise instead of being ignored.
 """
 
 from __future__ import annotations
@@ -36,9 +46,12 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import sys
+from typing import Optional
 
 from distributeddeeplearning_tpu_torch import config as cfglib
 from distributeddeeplearning_tpu_torch.models import model_spec
+from distributeddeeplearning_tpu_torch.parallel.process_group import (
+    launch_world)
 from distributeddeeplearning_tpu_torch.train import loop
 from distributeddeeplearning_tpu_torch.train.checkpoint import Checkpointer
 from distributeddeeplearning_tpu_torch.train.optim import check_ema_decay
@@ -47,12 +60,11 @@ from distributeddeeplearning_tpu_torch.train.optim import check_ema_decay
 # brings each: (flag, value that is a no-op, later slice).
 _LATER = (
     ("optimizer_sharding", None, "ZeRO optimizer sharding"),
-    ("sync_bn", False, "data parallelism (cross-replica BatchNorm "
-     "statistics)"),
     ("data_dir", None, "real data (the loaders)"),
 )
 # Mesh flags: each overrides an axis of the config's ParallelConfig; the
-# loop refuses any above 1 (train/loop.py check_one_card).
+# loop takes --dp at the world size and refuses the others above 1
+# (train/loop.py check_layout).
 _MESH = (("dp", "data"), ("tp", "model"), ("sp", "seq"), ("pp", "pipeline"))
 
 
@@ -133,11 +145,38 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="abort after K consecutive skipped updates "
                         "(default 10)")
     p.add_argument("--accum", type=int, default=None,
-                   help="gradient-accumulation microbatches (1 on one card)")
+                   help="gradient-accumulation microbatches per update: "
+                        "each rank's shard splits into this many, their "
+                        "gradients summed and divided once")
     for flag, _ in _MESH:
         p.add_argument(f"--{flag}", type=int, default=None,
                        help=argparse.SUPPRESS if flag != "dp" else
-                       "data-parallel size (1 on one card)")
+                       "data-parallel size: the world of a torchrun launch "
+                       "(torchrun --nproc-per-node N); 1 without torchrun")
+    p.add_argument("--sync-bn", action="store_true",
+                   help="cross-replica BatchNorm statistics (a mean over "
+                        "the ranks, torch SyncBatchNorm semantics; image "
+                        "models under torchrun, not with --fused-bn)")
+    p.add_argument("--allreduce-bucket-mb", type=float, default=None,
+                   help="gradient tensor-fusion bucket size in MB "
+                        "(parallel/collectives.py); one collective per "
+                        "bucket instead of per parameter. 0 = per-leaf "
+                        "reduction (the unfused A/B baseline); default 4")
+    p.add_argument("--allreduce-dtype", default=None,
+                   choices=["float32", "bfloat16"],
+                   help="gradient all-reduce payload dtype: bfloat16 halves "
+                        "the wire bytes and restores fp32 masters after the "
+                        "reduce")
+    p.add_argument("--allreduce-algo", default=None,
+                   choices=["psum", "ring"],
+                   help="per-bucket collective: one all-reduce (psum), or "
+                        "the reduce-scatter + all-gather ring form")
+    p.add_argument("--profile-steps", default=None, metavar="A,B",
+                   help="profile steps [A,B) with torch.profiler (end it "
+                        "within --warmup-steps so throughput excludes it)")
+    p.add_argument("--profile-dir", default="profile",
+                   help="where --profile-steps writes profile_rank<r>.json "
+                        "(default ./profile)")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     for flag, default, _ in _LATER:
         name = "--" + flag.replace("_", "-")
@@ -155,6 +194,20 @@ def _positive(args, *flags) -> None:
         if value is not None and value <= 0:
             raise SystemExit(f"--{flag.replace('_', '-')} must be positive "
                              f"(got {value})")
+
+
+def parse_profile_steps(spec: Optional[str]) -> Optional[tuple[int, int]]:
+    """``--profile-steps A,B`` as (A, B) with 0 <= A < B."""
+    if spec is None:
+        return None
+    try:
+        start, stop = (int(v) for v in spec.split(","))
+    except ValueError:
+        raise SystemExit(f"--profile-steps {spec!r}: expected A,B "
+                         f"(steps [A,B))") from None
+    if not 0 <= start < stop:
+        raise SystemExit(f"--profile-steps {spec!r}: need 0 <= A < B")
+    return start, stop
 
 
 def build_config(args: argparse.Namespace) -> cfglib.TrainConfig:
@@ -192,7 +245,8 @@ def build_config(args: argparse.Namespace) -> cfglib.TrainConfig:
         ("eval_every_epochs", args.eval_every_epochs),
         ("bad_step_limit", args.bad_step_limit),
         ("grad_accum_steps", args.accum)) if v is not None}
-    for flag in ("fused_bn", "fused_block", "fused_conv3", "bad_step_guard"):
+    for flag in ("fused_bn", "fused_block", "fused_conv3", "bad_step_guard",
+                 "sync_bn"):
         if getattr(args, flag):
             updates[flag] = True
     if args.precision:
@@ -210,6 +264,17 @@ def build_config(args: argparse.Namespace) -> cfglib.TrainConfig:
                               ("num_classes", args.num_classes)) if v}
     if data:
         updates["data"] = dataclasses.replace(cfg.data, **data)
+    if args.allreduce_bucket_mb is not None and args.allreduce_bucket_mb < 0:
+        raise SystemExit(f"--allreduce-bucket-mb must be >= 0 "
+                         f"(got {args.allreduce_bucket_mb}); 0 selects "
+                         f"per-leaf reduction")
+    allreduce = {k: v for k, v in (("bucket_mb", args.allreduce_bucket_mb),
+                                   ("dtype", args.allreduce_dtype),
+                                   ("algorithm", args.allreduce_algo))
+                 if v is not None}
+    if allreduce:
+        updates["allreduce"] = dataclasses.replace(cfg.allreduce,
+                                                   **allreduce)
     opt = {k: v for k, v in (("name", args.optimizer),
                              ("learning_rate", args.lr),
                              ("ema_decay", args.ema_decay)) if v is not None}
@@ -217,7 +282,7 @@ def build_config(args: argparse.Namespace) -> cfglib.TrainConfig:
         updates["optimizer"] = dataclasses.replace(cfg.optimizer, **opt)
     cfg = cfg.replace(**updates)
     try:
-        loop.check_one_card(cfg)
+        loop.check_layout(cfg, launch_world())
         cfglib.resolve_precision(cfg)
         check_ema_decay(cfg.optimizer)
     except ValueError as e:
@@ -268,7 +333,9 @@ def main(argv=None) -> int:
     config = _horizon(args, build_config(args))
     loop.run(config, device=args.device, warmup_steps=args.warmup_steps,
              emit=lambda line: print(line, flush=True),
-             eval_batches=args.eval_batches, restore_for_eval=args.eval_only)
+             eval_batches=args.eval_batches, restore_for_eval=args.eval_only,
+             profile_steps=parse_profile_steps(args.profile_steps),
+             profile_dir=args.profile_dir)
     return 0
 
 

@@ -1,5 +1,7 @@
 """The training loop of the port: counterpart of
-``distributeddeeplearning_tpu/train/loop.py`` for one card.
+``distributeddeeplearning_tpu/train/loop.py`` for one card, and for the
+explicit data-parallel path of image models over a ``torch.distributed``
+process group (``torchrun``; ``parallel/process_group.py``).
 
 Builds the model (float32 masters, compute dtype from the precision
 policy), the optimizer and schedule (warmup in epochs of
@@ -11,14 +13,30 @@ log step; evaluates on a held-out synthetic set every
 Throughput excludes the first ``warmup_steps`` steps (first-call and
 allocation costs), the evals and the final checkpoint. A ``batch_ramp``
 runs as one segment a stage (``run_ramp``).
+
+Data parallel: every rank builds the same weights from the seed and each
+step's global batch, and trains on its rows ``[r B / N, (r + 1) B / N)``
+(eval batches likewise); the step all-reduces the gradients
+(``train/steps.py``). Only rank 0 prints and writes checkpoints, with a
+barrier after each save; every rank restores. Throughput counts the global
+batch.
+
+``profile_steps`` = (A, B) profiles steps [A, B) with ``torch.profiler``
+and writes, per rank, the kernel and range totals (each bucket's
+``allreduce/bucketNN`` among them) to ``profile_dir``. On the card the
+summary adds the port's kernel launches over the run (``ops.
+launch_counts``) and the peak device memory.
 """
 
 from __future__ import annotations
 
+import inspect
 import json
 import math
 import sys
 import time
+import warnings
+from pathlib import Path
 from typing import Any, Callable, Optional
 
 import torch
@@ -29,6 +47,12 @@ from distributeddeeplearning_tpu_torch.config import (
 from distributeddeeplearning_tpu_torch.data.synthetic import (
     SyntheticCausalTokens, SyntheticImages)
 from distributeddeeplearning_tpu_torch.models import get_model, model_spec
+from distributeddeeplearning_tpu_torch.models.resnet import (
+    SYNC_BN_WITH_FUSED_BN)
+from distributeddeeplearning_tpu_torch.ops import launch_counts
+from distributeddeeplearning_tpu_torch.parallel import process_group
+from distributeddeeplearning_tpu_torch.parallel.process_group import (
+    DataParallel, launch_world)
 from distributeddeeplearning_tpu_torch.train import optim
 from distributeddeeplearning_tpu_torch.train.checkpoint import Checkpointer
 from distributeddeeplearning_tpu_torch.train.state import TrainState
@@ -40,13 +64,11 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # ImageNet-1k's training split, the JAX package's
 # ``data/imagenet.py:TRAIN_SPLIT_SIZE``.
 TRAIN_SPLIT_SIZE = 1_281_167
-# Mesh axes the one-card port refuses above 1, with the slice that brings
-# each.
+# Mesh axes the port refuses above 1, with the slice that brings each.
+_GSPMD = "the GSPMD slice (FSDP and tensor parallelism)"
 _LATER_AXES = (
-    ("data", "--dp", "data parallelism (NCCL with the bucket plan, which "
-     "also brings --accum and SyncBN)"),
-    ("fsdp", None, "the GSPMD slice (FSDP and tensor parallelism)"),
-    ("model", "--tp", "the GSPMD slice (FSDP and tensor parallelism)"),
+    ("fsdp", None, _GSPMD),
+    ("model", "--tp", _GSPMD),
     ("seq", "--sp", "ring and zigzag attention"),
     ("expert", None, "mixture-of-experts models"),
     ("pipeline", "--pp", "pipeline parallelism"),
@@ -66,36 +88,87 @@ def steps_per_epoch(config: TrainConfig) -> Optional[int]:
     return None
 
 
-def check_one_card(config: TrainConfig) -> None:
-    """Refuse what the one-card port does not carry, naming the slice that
-    brings it: a mesh axis above 1, gradient accumulation, a dataset other
-    than ImageNet (BERT's MLM data), a fused BatchNorm flag on a model
-    without that path."""
+def check_layout(config: TrainConfig, world: Optional[int] = None) -> None:
+    """Refuse a layout the port does not carry, naming the flag and the
+    slice that brings it. ``world``: the run's process-group size (None:
+    no group, one card). An image model shards ``--dp`` = ``world`` ranks
+    (1 without a group); a token model takes neither ``--dp`` nor
+    ``--accum`` above 1 (the JAX package trains token models on its GSPMD
+    path); every other mesh axis stays 1; the global batch must split over
+    the ranks and each shard over ``--accum``; ``--sync-bn`` needs a
+    BatchNorm model without ``fused_bn`` and a process group. Also refuses
+    a dataset other than ImageNet (BERT's MLM data) and a fused BatchNorm
+    flag on a model without that path."""
     for axis, flag, later in _LATER_AXES:
         size = getattr(config.parallel, axis)
         if size > 1:
             name = flag or f"parallel.{axis}"
             raise ValueError(
-                f"{name} {size}: the port runs on one card; {later} comes "
-                f"with a later slice. Set {name} to 1")
-    if config.grad_accum_steps > 1:
-        raise ValueError(
-            f"--accum {config.grad_accum_steps} (grad_accum_steps): "
-            f"gradient accumulation comes with data parallelism, a later "
-            f"slice. Set --accum to 1")
+                f"{name} {size}: the port shards only the data axis; "
+                f"{later} comes with a later slice. Set {name} to 1")
     if config.data.dataset != "imagenet":
         raise ValueError(
             f"dataset {config.data.dataset!r}: the port knows only "
             f"'imagenet'; BERT and its MLM data come with a later slice "
             f"(BERT and ViT)")
     spec = model_spec(config.model)
-    if spec.input_kind == "image" and config.model.startswith("densenet"):
+    data, accum = config.parallel.data, config.grad_accum_steps
+    if spec.input_kind != "image":
+        if data > 1 or accum > 1:
+            raise ValueError(
+                f"--dp {data} --accum {accum}: {config.model} is a token "
+                f"model, which the JAX package trains on its GSPMD path "
+                f"(make_gspmd_train_step); {_GSPMD} comes with a later "
+                f"slice. Set --dp and --accum to 1")
+        if config.sync_bn:
+            raise ValueError(
+                "sync_bn requires the pure-DP shard_map path (image model, "
+                "no tp/sp/fsdp axes); this config takes the GSPMD path")
+    if config.model.startswith("densenet"):
         on = [f for f in _FUSED if getattr(config, f)]
         if on:
             raise ValueError(
                 f"{', '.join(on)}: {config.model} has no fused BatchNorm "
                 f"path (neither has the JAX DenseNet); its BatchNorm runs "
                 f"plainly")
+    have = 1 if world is None else world
+    if data != have:
+        raise ValueError(
+            f"--dp {data} needs a world of {data} processes (torchrun "
+            f"--nproc-per-node {data}); this run has {have}")
+    config.per_device_batch  # noqa: B018 - raises on an uneven split
+    if config.sync_bn:
+        if "bn_axis_name" not in inspect.signature(spec.build).parameters:
+            raise ValueError(
+                f"--sync-bn: model {config.model!r} has no BatchNorm to "
+                f"synchronize (supported: resnet*/densenet* families)")
+        if config.fused_bn:
+            raise ValueError(SYNC_BN_WITH_FUSED_BN)
+        if world is None:
+            raise ValueError(
+                "--sync-bn averages BatchNorm statistics over the ranks of "
+                "a process group, and this run has none: launch it with "
+                "torchrun (python -m torch.distributed.run "
+                "--nproc-per-node N ... --dp N --sync-bn)")
+
+
+def warn_small_bn_batch(config: TrainConfig) -> None:
+    """Warn when a BatchNorm's statistics see 1 example, or fewer than 32
+    under accumulation (the JAX loop's warning): the shard's microbatch,
+    times the ranks under ``sync_bn``."""
+    bn_batch = config.per_device_batch // max(config.grad_accum_steps, 1)
+    if config.sync_bn:
+        bn_batch *= config.parallel.data * config.parallel.fsdp
+    if bn_batch == 1 or (config.grad_accum_steps > 1 and bn_batch < 32):
+        detail = ("training can silently stall at uniform logits; increase "
+                  "--batch-size, reduce the data-parallel axis, or pool "
+                  "statistics across shards with --sync-bn"
+                  if bn_batch == 1 else "consider lowering --accum")
+        warnings.warn(
+            f"BatchNorm statistics will be computed over only {bn_batch} "
+            f"example(s) (per_device_batch={config.per_device_batch}, "
+            f"grad_accum_steps={config.grad_accum_steps}); {detail}",
+            UserWarning, stacklevel=3)
 
 
 def run_schedule(config: TrainConfig) -> Callable[[int], float]:
@@ -119,6 +192,8 @@ def build_state(config: TrainConfig, device,
     if _is_image(config):
         kw: dict[str, Any] = {"num_classes": config.data.num_classes}
         kw.update({f: True for f in _FUSED if getattr(config, f)})
+        if config.sync_bn:
+            kw["bn_axis_name"] = "data"
     else:
         kw = {"seq_len": config.data.seq_len}
         if config.attention_impl:
@@ -169,13 +244,14 @@ class _EvaluatorBase:
     metric_name: str
     best: Callable
 
-    def __init__(self, source, num_batches: int, eval_step):
+    def __init__(self, source, num_batches: int, eval_step,
+                 shard: Callable[[dict], dict]):
         self.source, self.num_batches = source, num_batches
-        self.eval_step = eval_step
+        self.eval_step, self.shard = eval_step, shard
 
     def __call__(self, state: TrainState) -> float:
-        outs = [self.eval_step(state, self.source.batch(
-            self.SYNTHETIC_EVAL_OFFSET + j)) for j in range(self.num_batches)]
+        outs = [self.eval_step(state, self.shard(self.source.batch(
+            self.SYNTHETIC_EVAL_OFFSET + j))) for j in range(self.num_batches)]
         return self._accumulate(outs)
 
 
@@ -204,12 +280,20 @@ class _TokenEvaluator(_EvaluatorBase):
         return loss_sum / max(count, 1.0)
 
 
-def make_evaluator(config: TrainConfig, model, device, num_batches: int
-                   ) -> _EvaluatorBase:
+def make_evaluator(config: TrainConfig, model, device, num_batches: int,
+                   dp: Optional[DataParallel] = None) -> _EvaluatorBase:
+    """The held-out evaluator; under ``dp`` each rank scores its rows of
+    every eval batch and the counts are summed over the ranks."""
     source = make_source(config, model, device)
     if _is_image(config):
-        return _Evaluator(source, num_batches, make_eval_step(config))
-    return _TokenEvaluator(source, num_batches, make_token_eval_step(config))
+        return _Evaluator(source, num_batches, make_eval_step(config, dp),
+                          _sharder(dp))
+    return _TokenEvaluator(source, num_batches, make_token_eval_step(config),
+                           _sharder(dp))
+
+
+def _sharder(dp: Optional[DataParallel]) -> Callable[[dict], dict]:
+    return (lambda batch: batch) if dp is None else dp.shard
 
 
 class _BadStepTracker:
@@ -255,7 +339,8 @@ class _BadStepTracker:
 
 def run_ramp(config: TrainConfig, stages: list, *, device, warmup_steps: int,
              emit: Callable[[str], None], eval_batches: int,
-             return_state: bool) -> dict:
+             return_state: bool, dp: Optional[DataParallel] = None,
+             profile: Optional["StepProfiler"] = None) -> dict:
     """A staged batch ramp: each stage a segment of ``run`` at the stage's
     batch, whose schedule is the linear-scaling rule's at that batch over
     the horizon of the stage's end. Segments chain through the checkpoint
@@ -276,10 +361,11 @@ def run_ramp(config: TrainConfig, stages: list, *, device, warmup_steps: int,
         last = k == len(live) - 1
         want_state = (return_state and last) or (
             not config.checkpoint_dir and not last)
-        summary = run(cfg_s, device=device, warmup_steps=warmup_steps,
-                      emit=emit, eval_batches=eval_batches,
-                      return_state=want_state, _ramp_stage=True,
-                      _carried=carried)
+        summary = _run_segment(cfg_s, device=device, dp=dp,
+                               warmup_steps=warmup_steps, emit=emit,
+                               eval_batches=eval_batches,
+                               return_state=want_state, ramp_stage=True,
+                               carried=carried, profile=profile)
         carried = summary.get("state")
         if not (return_state and last):
             summary.pop("state", None)
@@ -294,28 +380,80 @@ def run_ramp(config: TrainConfig, stages: list, *, device, warmup_steps: int,
     return summary
 
 
+class StepProfiler:
+    """``torch.profiler`` over steps [start, stop) of a run (``state.step``
+    before the step). When the window closes it writes
+    ``<directory>/profile_rank<r>.json``: the steps, the device, each
+    ``record_function`` range (``allreduce/bucketNN``, the optimizer's)
+    with its call count, host ms and the device ms of the kernels launched
+    inside it, and each device kernel with its count and ms. The window is
+    closed before a step's timing is read, so it should end within the
+    run's ``warmup_steps``."""
+
+    def __init__(self, start: int, stop: int, directory: str, rank: int):
+        self.start, self.stop = start, stop
+        self.path = Path(directory) / f"profile_rank{rank}.json"
+        self._prof = None
+
+    def before(self, step: int, device: torch.device) -> None:
+        if step == self.start and self._prof is None:
+            from torch.profiler import ProfilerActivity, profile
+
+            acts = [ProfilerActivity.CPU]
+            if device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            self._prof = profile(activities=acts)
+            self._prof.__enter__()
+
+    def after(self, step: int, device: torch.device) -> None:
+        if self._prof is None or step < self.stop:
+            return
+        _sync(device)
+        self._prof.__exit__(None, None, None)
+        ranges: dict[str, dict] = {}
+        kernels: dict[str, dict] = {}
+        for e in self._prof.events():
+            host = e.device_type == torch.autograd.DeviceType.CPU
+            if getattr(e, "is_user_annotation", False) and host:
+                entry = ranges.setdefault(e.name, {"count": 0, "cpu_ms": 0.0,
+                                                   "device_ms": 0.0})
+                entry["cpu_ms"] += e.cpu_time_total / 1e3
+                entry["device_ms"] += e.device_time_total / 1e3
+            elif not host and not getattr(e, "is_user_annotation", False):
+                entry = kernels.setdefault(e.name, {"count": 0,
+                                                    "device_ms": 0.0})
+                entry["device_ms"] += e.time_range.elapsed_us() / 1e3
+            else:
+                continue
+            entry["count"] += 1
+        self.path.parent.mkdir(parents=True, exist_ok=True)
+        self.path.write_text(json.dumps({
+            "steps": [self.start, self.stop], "device": _device_name(device),
+            "ranges": ranges, "kernels": kernels}))
+        self._prof = None
+        self.start = -1  # one window a run
+
+
+def _device_name(device: torch.device) -> str:
+    return (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+
+
 def run(config: TrainConfig, *, device=None, warmup_steps: int = 2,
         emit: Callable[[str], None] = print, eval_batches: int = 0,
         restore_for_eval: bool = False, return_state: bool = False,
-        _ramp_stage: bool = False,
-        _carried: Optional[TrainState] = None) -> dict:
+        profile_steps: Optional[tuple[int, int]] = None,
+        profile_dir: str = "profile") -> dict:
     """Train to ``config.total_steps``; returns the summary (also emitted
     as the last ``{"summary": ...}`` line). ``device``: ``cuda`` unless
-    ``cpu`` is asked for. ``eval_batches`` > 0 evaluates every
-    ``eval_every_epochs`` and at the end (top-1 for image models, loss and
-    perplexity for token models). ``restore_for_eval``: restore the newest
-    checkpoint's parameters, buffers, step and EMA, train nothing, and
-    evaluate. ``return_state`` adds the state under ``"state"``."""
-    if not _ramp_stage and not restore_for_eval:
-        ramp = optim.parse_batch_ramp(
-            config.batch_ramp, final_batch=config.global_batch_size,
-            checkpoint_every=(config.checkpoint_every_steps
-                              if config.checkpoint_dir else 0))
-        if ramp is not None:
-            return run_ramp(config, ramp, device=device,
-                            warmup_steps=warmup_steps, emit=emit,
-                            eval_batches=eval_batches,
-                            return_state=return_state)
+    ``cpu`` is asked for; a rank of a ``torchrun`` launch joins its process
+    group (NCCL on ``cuda:LOCAL_RANK``, gloo on the CPU) and leaves it at
+    the end. ``eval_batches`` > 0 evaluates every ``eval_every_epochs`` and
+    at the end (top-1 for image models, loss and perplexity for token
+    models). ``restore_for_eval``: restore the newest checkpoint's
+    parameters, buffers, step and EMA, train nothing, and evaluate.
+    ``return_state`` adds the state under ``"state"``. ``profile_steps``:
+    profile steps [A, B) into ``profile_dir`` (``StepProfiler``)."""
     total_steps = config.total_steps or 0
     if restore_for_eval:
         if not (config.checkpoint_dir and config.resume):
@@ -323,11 +461,56 @@ def run(config: TrainConfig, *, device=None, warmup_steps: int = 2,
                              "restore from, with resume on")
     elif total_steps <= 0:
         raise ValueError(f"total_steps must be positive (got {total_steps})")
-    check_one_card(config)
-    device = resolve_device(device)
+    check_layout(config, launch_world())
+    dp, device = process_group.join(resolve_device(device))
+    rank = 0 if dp is None else dp.rank
+    if rank != 0:
+        emit = _silent
+    if _is_image(config) and rank == 0:
+        warn_small_bn_batch(config)
+    profile = (None if profile_steps is None
+               else StepProfiler(*profile_steps, profile_dir, rank))
+    try:
+        ramp = None if restore_for_eval else optim.parse_batch_ramp(
+            config.batch_ramp, final_batch=config.global_batch_size,
+            checkpoint_every=(config.checkpoint_every_steps
+                              if config.checkpoint_dir else 0))
+        if ramp is not None:
+            for st in ramp:  # every stage's batch splits as the last's does
+                config.replace(global_batch_size=st.batch).per_device_batch
+            return run_ramp(config, ramp, device=device, dp=dp,
+                            warmup_steps=warmup_steps, emit=emit,
+                            eval_batches=eval_batches,
+                            return_state=return_state, profile=profile)
+        return _run_segment(config, device=device, dp=dp,
+                            warmup_steps=warmup_steps, emit=emit,
+                            eval_batches=eval_batches,
+                            restore_for_eval=restore_for_eval,
+                            return_state=return_state, profile=profile)
+    finally:
+        if dp is not None:
+            dp.close()
+
+
+def _silent(line: str) -> None:
+    del line
+
+
+def _run_segment(config: TrainConfig, *, device: torch.device,
+                 dp: Optional[DataParallel], warmup_steps: int,
+                 emit: Callable[[str], None], eval_batches: int,
+                 restore_for_eval: bool = False, return_state: bool = False,
+                 ramp_stage: bool = False,
+                 carried: Optional[TrainState] = None,
+                 profile: Optional[StepProfiler] = None) -> dict:
+    """``run`` at one global batch: the whole run, or one stage of a
+    ramp (``ramp_stage``, which starts from the ``carried`` state when the
+    stages do not chain through checkpoints and emits no summary)."""
+    total_steps = config.total_steps or 0
+    rank = 0 if dp is None else dp.rank
     state, sched = build_state(config.replace(total_steps=max(total_steps,
                                                               1)),
-                               device, _carried)
+                               device, carried)
     ckpt: Optional[Checkpointer] = None
     if config.checkpoint_dir:
         ckpt = Checkpointer(config.checkpoint_dir,
@@ -335,41 +518,56 @@ def run(config: TrainConfig, *, device=None, warmup_steps: int = 2,
         restored = config.resume and (ckpt.restore_for_eval(state)
                                       if restore_for_eval
                                       else ckpt.restore(state))
-        if restored:
+        if restored and rank == 0:
             print(f"# resumed from step {state.step}", file=sys.stderr,
                   flush=True)
     start = state.step
     end_step = max(total_steps, start)
-    print(f"# model={config.model} global_batch={config.global_batch_size} "
-          f"precision={resolve_precision(config).describe()} "
-          f"optimizer={config.optimizer.name} "
-          f"batch_ramp={optim.ramp_describe(config)}"
-          + (f" | resumed@{start}" if start else ""), file=sys.stderr,
-          flush=True)
+    if rank == 0:
+        print(f"# model={config.model} "
+              f"global_batch={config.global_batch_size} "
+              f"precision={resolve_precision(config).describe()} "
+              f"optimizer={config.optimizer.name} "
+              f"batch_ramp={optim.ramp_describe(config)}"
+              + (f" | dp={dp.world} sync_bn={config.sync_bn} allreduce="
+                 f"{config.allreduce.describe()}" if dp is not None else "")
+              + (f" accum={config.grad_accum_steps}"
+                 if config.grad_accum_steps > 1 else "")
+              + (f" | resumed@{start}" if start else ""), file=sys.stderr,
+              flush=True)
     source = make_source(config, state.model, device)
-    train_step = make_train_step(config, sched)
+    shard = _sharder(dp)
+    train_step = make_train_step(config, sched, dp)
     evaluator = None
     eval_every_steps = 0
     evals: list[tuple[int, float]] = []
     if eval_batches > 0:
-        evaluator = make_evaluator(config, state.model, device, eval_batches)
+        evaluator = make_evaluator(config, state.model, device, eval_batches,
+                                   dp)
         spe = steps_per_epoch(config)
         if config.eval_every_epochs > 0 and spe is not None:
             eval_every_steps = max(int(config.eval_every_epochs * spe), 1)
     bad_tracker = _BadStepTracker(config.bad_step_limit)
     warmup = min(warmup_steps, max(total_steps - start - 1, 0))
     metrics: dict[str, Any] = {}
+    launches0 = launch_counts()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     t_timed = time.perf_counter() if warmup == 0 else None
     t_last, step_last = time.perf_counter(), start
     while state.step < total_steps:
-        metrics = train_step(state, source.batch(state.step))
+        if profile is not None:
+            profile.before(state.step, device)
+        metrics = train_step(state, shard(source.batch(state.step)))
         bad_tracker.push(metrics)
         i = state.step
+        if profile is not None:
+            profile.after(i, device)
         if i - start == warmup and t_timed is None:
             _sync(device)
             t_timed = time.perf_counter()
         if ckpt is not None and i < total_steps:
-            ckpt.maybe_save(state)
+            _save(ckpt, state, dp)
         if i % config.log_every == 0 or i == total_steps:
             record = {"step": i}
             record.update({k: float(v) for k, v in metrics.items()})
@@ -393,16 +591,24 @@ def run(config: TrainConfig, *, device=None, warmup_steps: int = 2,
     _sync(device)
     t_end = time.perf_counter()
     if ckpt is not None and total_steps > start:
-        ckpt.maybe_save(state, force=True)
+        _save(ckpt, state, dp, force=True)
 
     summary: dict[str, Any] = {
         "final_step": state.step, "start_step": start,
         "final_metrics": {k: float(v) for k, v in metrics.items()},
-        "device": (torch.cuda.get_device_name(device)
-                   if device.type == "cuda" else "cpu"),
+        "device": _device_name(device),
         "precision": resolve_precision(config).describe(),
         "bad_steps": bad_tracker.total,
     }
+    if dp is not None:
+        summary["data_parallel"] = {
+            "world": dp.world, "backend": torch.distributed.get_backend(),
+            "allreduce": config.allreduce.describe()}
+    if device.type == "cuda":
+        summary["kernel_launches"] = {
+            k: v - launches0[k] for k, v in launch_counts().items()}
+        summary["peak_memory_gb"] = (
+            torch.cuda.max_memory_allocated(device) / 1e9)
     timed_steps = total_steps - start - warmup
     if t_timed is not None and timed_steps > 0:
         elapsed = t_end - t_timed
@@ -422,8 +628,20 @@ def run(config: TrainConfig, *, device=None, warmup_steps: int = 2,
         summary["evals"] = evals
         if name == "eval_loss":
             summary["eval_ppl"] = math.exp(min(final_val, 30.0))
-    if not _ramp_stage:
+    if not ramp_stage:
         emit(json.dumps({"summary": summary}))
     if return_state:
         summary["state"] = state
     return summary
+
+
+def _save(ckpt: Checkpointer, state: TrainState,
+          dp: Optional[DataParallel], force: bool = False) -> None:
+    """Rank 0 writes the checkpoint; under ``dp`` every rank then waits at a
+    barrier, so no rank reads a checkpoint before it exists."""
+    if not ckpt.due(state.step, force=force):
+        return
+    if dp is None or dp.rank == 0:
+        ckpt.save(state)
+    if dp is not None:
+        dp.barrier()

@@ -1,7 +1,9 @@
-"""The train and eval steps: the one-card counterpart of the replicated
-branch of ``make_dp_train_step`` (``distributeddeeplearning_tpu/train/
-steps.py``) with one data-parallel replica and no ZeRO, and of its
-``make_dp_eval_step`` and ``make_token_eval_step``.
+"""The train and eval steps: counterparts of ``make_dp_train_step``'s
+replicated branch (no ZeRO) in ``distributeddeeplearning_tpu/train/
+steps.py``, with ``accumulated_grads``, and of its ``make_dp_eval_step``
+and ``make_token_eval_step``. Without a process group the step runs one
+replica on one card; with one (``parallel/process_group.py``) each rank
+holds a full replica and its shard of the global batch.
 
 Forward, loss, backward, optional global-norm clip and the optimizer
 update. The loss follows the model's input kind, as the JAX package's
@@ -11,37 +13,55 @@ buffers), causal-LM loss for token models. Dropout draws from a CPU
 generator seeded by (seed, step), as the JAX step folds the step into its
 dropout key, so a resumed run drops what an unbroken one would.
 
-Around the update, as the JAX step has them:
+A step, in the JAX step's order:
 
-- **dynamic loss scaling** (``PrecisionPolicy.loss_scale`` > 0): backward
-  runs on ``loss * scale``; the gradients are checked for overflow (a
-  non-finite squared norm, ``_tree_sq_norm``) while still scaled, then
-  divided by the scale; an overflow skips the update and ``next_loss_scale``
-  halves the scale, ``growth_interval`` good steps double it;
-- **the bad-step guard** (``bad_step_guard``): a non-finite loss or
-  gradient skips the update and reports ``bad_step``; it is not armed on a
-  step the scaler already skipped;
-- **skipping** keeps the parameters, the optimizer state (and so its count,
-  ``TrainState.updates``, which the schedule reads), the BatchNorm running
-  buffers (restored from a copy taken before the forward) and the EMA;
-  ``step`` still advances. Whether to skip is read on the host, one wait
-  for the device a step, as ``torch.amp.GradScaler`` does;
-- **the EMA** (``optimizer.ema_decay`` > 0): ``e <- d * e + (1 - d) * p``
-  after each applied update, over the parameters only.
+1. **gradients** (``accumulated_grads``): backward on the loss (times the
+   loss scale when scaling); with ``grad_accum_steps`` > 1 the shard's
+   batch splits into that many microbatches whose gradients are summed
+   and divided once, the BatchNorm running buffers updated in sequence
+   through them and the metrics averaged over them;
+2. **data parallelism**: the bucketed all-reduce of the gradients
+   (``parallel/collectives.py``, by ``config.allreduce``; an explicit
+   precision policy sets the payload to its ``reduce_dtype``), then
+   division by the world size;
+3. **dynamic loss scaling** (``PrecisionPolicy.loss_scale`` > 0): the
+   overflow check on the reduced, still scaled gradients (a non-finite
+   squared norm, ``tree_sq_norm``), then division by the scale; an
+   overflow skips the update and ``next_loss_scale`` halves the scale,
+   ``growth_interval`` good steps double it;
+4. **data parallelism**: the metrics and the running buffers are averaged
+   over the ranks;
+5. **the bad-step guard** (``bad_step_guard``): a non-finite (averaged)
+   loss or (reduced) gradient skips the update and reports ``bad_step``;
+   it is not armed on a step the scaler already skipped. Both read values
+   every rank holds alike, so every rank skips together;
+6. **update or skip**: a skip keeps the parameters, the optimizer state
+   (and so its count, ``TrainState.updates``, which the schedule reads),
+   the BatchNorm running buffers (restored from a copy taken before the
+   forward) and the EMA; ``step`` still advances. Whether to skip is read
+   on the host, one wait for the device a step, as ``torch.amp.
+   GradScaler`` does;
+7. **the EMA** (``optimizer.ema_decay`` > 0): ``e <- d * e + (1 - d) * p``
+   after each applied update, over the parameters only.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.func import functional_call
 
 from distributeddeeplearning_tpu_torch.config import (
     PrecisionPolicy, TrainConfig, resolve_precision)
 from distributeddeeplearning_tpu_torch.data.synthetic import step_seed
 from distributeddeeplearning_tpu_torch.models import model_spec
+from distributeddeeplearning_tpu_torch.parallel import collectives
+from distributeddeeplearning_tpu_torch.parallel.process_group import (
+    DataParallel)
 from distributeddeeplearning_tpu_torch.train.losses import (
     causal_lm_loss, causal_lm_loss_sums, smoothed_softmax_ce, top1_accuracy)
 from distributeddeeplearning_tpu_torch.train.optim import (
@@ -114,14 +134,35 @@ def ema_update_(ema: dict, model, decay: float) -> None:
                         alpha=float(np.float32(1.0) - d))
 
 
-def make_train_step(config: TrainConfig, schedule: Schedule
+def allreduce_options(config: TrainConfig):
+    """The run's all-reduce options: ``config.allreduce``, its payload
+    dtype replaced by an explicit precision policy's ``reduce_dtype``."""
+    if config.precision is None:
+        return config.allreduce
+    return dataclasses.replace(config.allreduce,
+                               dtype=resolve_precision(config).reduce_dtype)
+
+
+def split_microbatches(batch: dict, accum: int) -> list[dict]:
+    """``batch`` as ``accum`` equal microbatches of consecutive rows
+    (views, no copy), as the JAX step reshapes its leading dimension."""
+    if accum <= 1:
+        return [batch]
+    rows = next(iter(batch.values())).shape[0] // accum
+    return [{k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
+            for i in range(accum)]
+
+
+def make_train_step(config: TrainConfig, schedule: Schedule,
+                    dp: Optional[DataParallel] = None
                     ) -> Callable[[TrainState, dict], dict]:
     """``train_step(state, batch) -> {"loss", "lr", ...}``: one step of
-    ``state`` in place. ``loss`` (unscaled) and ``accuracy`` (image models)
-    stay device tensors; ``lr`` is the rate of this step's update (of the
-    update it would have made, when skipped). With loss scaling the metrics
-    add ``loss_scale`` and ``loss_scale_skip``, with the guard
-    ``bad_step``."""
+    ``state`` in place on ``batch`` (this rank's shard under ``dp``).
+    ``loss`` (unscaled, averaged over microbatches and ranks) and
+    ``accuracy`` (image models) stay device tensors; ``lr`` is the rate of
+    this step's update (of the update it would have made, when skipped).
+    With loss scaling the metrics add ``loss_scale`` and
+    ``loss_scale_skip``, with the guard ``bad_step``."""
     clip = config.optimizer.grad_clip_norm
     smoothing = config.optimizer.label_smoothing
     ema_decay = config.optimizer.ema_decay
@@ -129,6 +170,8 @@ def make_train_step(config: TrainConfig, schedule: Schedule
     policy = resolve_precision(config)
     scaling = policy.loss_scale > 0
     guard = config.bad_step_guard
+    accum = max(config.grad_accum_steps, 1)
+    options = allreduce_options(config)
 
     def forward(model, step: int, batch: dict) -> dict:
         if image:
@@ -142,31 +185,53 @@ def make_train_step(config: TrainConfig, schedule: Schedule
                        rng=dropout_rng(config.seed, step))
         return {"loss": causal_lm_loss(logits, ids, mask)}
 
+    def accumulated_grads(state: TrainState, batch: dict) -> dict:
+        """Backward on each microbatch's loss (times the scale), summed
+        into ``.grad`` and divided once; the metrics' mean."""
+        model = state.model
+        scale = state.loss_scale["scale"] if scaling else None
+        outs = []
+        for micro in split_microbatches(batch, accum):
+            metrics = forward(model, state.step, micro)
+            loss = metrics["loss"]
+            (loss * scale if scaling else loss).backward()
+            outs.append({k: v.detach() for k, v in metrics.items()})
+        if accum == 1:
+            return outs[0]
+        torch._foreach_div_([p.grad for p in model.parameters()
+                             if p.grad is not None], accum)
+        return {k: torch.stack([o[k] for o in outs]).mean() for k in outs[0]}
+
     def train_step(state: TrainState, batch: dict) -> dict:
         model, opt = state.model, state.optimizer
         buffers = saved = None
         if scaling or guard:
             buffers = list(model.buffers())
             saved = [b.detach().clone() for b in buffers]
-        metrics = forward(model, state.step, batch)
-        loss = metrics["loss"]
         opt.zero_grad(set_to_none=True)
-        if scaling:
-            scale = state.loss_scale["scale"]
-            (loss * scale).backward()
-        else:
-            loss.backward()
-        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        metrics = accumulated_grads(state, batch)
+        named = {n: p.grad for n, p in model.named_parameters()
+                 if p.grad is not None}
+        grads = list(named.values())
+        if dp is not None:
+            collectives.all_reduce_gradients(named, options=options)
+            torch._foreach_div_(grads, dp.world)
         skip = None
         if scaling:
+            scale = state.loss_scale["scale"]
             overflow = ~torch.isfinite(tree_sq_norm(grads))
             torch._foreach_div_(grads, scale)
             state.loss_scale, ls_metrics = next_loss_scale(
                 policy, scale, state.loss_scale["good_steps"], overflow)
-            metrics.update(ls_metrics)
             skip = overflow
+        if dp is not None:
+            pmean_([*metrics.values(), *(b for b in model.buffers()
+                                         if b.is_floating_point())],
+                   dp.world)
+        if scaling:
+            metrics.update(ls_metrics)
         if guard:
-            bad = ~torch.isfinite(loss.detach()) | ~torch.isfinite(
+            bad = ~torch.isfinite(metrics["loss"]) | ~torch.isfinite(
                 tree_sq_norm(grads))
             if scaling:
                 bad = bad & ~overflow
@@ -186,9 +251,23 @@ def make_train_step(config: TrainConfig, schedule: Schedule
             if state.ema is not None:
                 ema_update_(state.ema, model, ema_decay)
         state.step += 1
-        return {**metrics, "loss": loss.detach(), "lr": lr}
+        return {**metrics, "lr": lr}
 
     return train_step
+
+
+def pmean_(tensors: list, world: int) -> None:
+    """Each floating tensor of ``tensors`` replaced in place by its mean
+    over the ranks: one sum all-reduce of their float32 concatenation,
+    divided by ``world``."""
+    flat = torch.cat([t.reshape(-1).float() for t in tensors])
+    dist.all_reduce(flat)
+    flat /= world
+    offset = 0
+    with torch.no_grad():
+        for t in tensors:
+            t.copy_(flat[offset:offset + t.numel()].view(t.shape))
+            offset += t.numel()
 
 
 def _eval_forward(state: TrainState, *args, **kwargs):
@@ -207,18 +286,24 @@ def _eval_forward(state: TrainState, *args, **kwargs):
         model.train(was_training)
 
 
-def make_eval_step(config: TrainConfig
+def make_eval_step(config: TrainConfig, dp: Optional[DataParallel] = None
                    ) -> Callable[[TrainState, dict], dict]:
     """Held-out top-1 of an image model: ``eval_step(state, batch) ->
     {"correct", "total"}`` (device int64 scalars) with the running
-    statistics (eval mode) and, when kept, the EMA parameters."""
+    statistics (eval mode) and, when kept, the EMA parameters. Under ``dp``
+    each rank scores its shard and both counts are summed over the ranks
+    before anyone divides, as ``make_dp_eval_step`` psums them."""
     del config
 
     def eval_step(state: TrainState, batch: dict) -> dict:
         logits = _eval_forward(state, batch["image"])
         label = batch["label"]
-        return {"correct": (logits.argmax(dim=-1) == label).sum(),
-                "total": torch.tensor(label.shape[0], device=label.device)}
+        counts = torch.stack([(logits.argmax(dim=-1) == label).sum(),
+                              torch.tensor(label.shape[0],
+                                           device=label.device)])
+        if dp is not None:
+            dist.all_reduce(counts)
+        return {"correct": counts[0], "total": counts[1]}
 
     return eval_step
 

@@ -163,5 +163,9 @@ def test_densenet_is_channels_last_and_refuses_sync_bn():
     x = torch.randn(2, SIZE, SIZE, 3).permute(0, 3, 1, 2)
     y = model.block1_layer1(model.bn_stem(model.conv_stem(x)))
     assert y.is_contiguous(memory_format=torch.channels_last)
-    with pytest.raises(NotImplementedError):
-        densenet.densenet_nano(bn_axis_name="data")
+    # Cross-replica statistics outside a process group raise; they never
+    # fall back to this replica's own.
+    synced = densenet.densenet_nano(num_classes=CLASSES, dtype=torch.float32,
+                                    bn_axis_name="data").train()
+    with pytest.raises(RuntimeError, match="process group"):
+        synced(torch.randn(2, SIZE, SIZE, 3))

@@ -185,5 +185,8 @@ def test_registry_parameter_counts_match_jax():
 
 
 def test_later_slice_options_raise():
-    with pytest.raises(NotImplementedError):
-        resnet.resnet_nano(bn_axis_name="data")
+    # Cross-replica statistics with the fused BatchNorm kernels: refused
+    # with the JAX model's ValueError.
+    with pytest.raises(ValueError, match="sync_bn is not supported with "
+                                         "fused_bn"):
+        resnet.resnet_nano(bn_axis_name="data", fused_bn=True)

@@ -5,8 +5,10 @@ mask and clipping included) for a GPT and for ``resnet_nano``, the
 schedules alone, and the trainer alone: a resumed run equals an unbroken
 one bitwise (for the ResNet with its BatchNorm running buffers), the
 synthetic batches depend only on their step, and the CLI prints its lines
-on ``--device cpu`` and refuses to run without a card or with flags of
-later slices.
+on ``--device cpu`` and refuses to run without a card, with flags of later
+slices, with a ``--dp`` other than the run's world (1 without torchrun) and
+with ``--sync-bn`` beside ``--fused-bn`` (the data-parallel slice's ``--dp``,
+``--accum`` and ``--sync-bn`` run in ``tests/test_torch_dp.py``).
 
 Parameters are compared relative to each tensor's largest |ref| at F32
 (``close_rel``): both sides update in f32 and round in other places.
@@ -305,13 +307,14 @@ def test_resnet_cli_without_a_card_raises(monkeypatch):
         tcli.main(["--model", "resnet_nano", "--fused-bn", "--steps", "1"])
 
 
-@pytest.mark.parametrize("argv", [["--dp", "2"], ["--accum", "4"],
+@pytest.mark.parametrize("argv", [["--dp", "2"],
+                                  ["--data-dir", "/nonexistent"],
                                   ["--sp", "2"],
                                   ["--pp", "2"],
                                   ["--tp", "2"],
                                   ["--optimizer-sharding", "zero1"],
                                   ["--fused-conv3"],
-                                  ["--sync-bn"]])
+                                  ["--sync-bn", "--fused-bn"]])
 def test_cli_refuses_flags_of_later_slices(argv):
     with pytest.raises((SystemExit, NotImplementedError)):
         tcli.main(["--model", "resnet_nano", "--device", "cpu", "--steps",
