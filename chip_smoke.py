@@ -130,7 +130,23 @@ Run from the root of a checkout. Phases:
    finite; each lr the preset schedule's at the update count; the peak
    memory less the global batch's images is within 10% of one batch-512
    update's less its images (measured first, same flags, ``--accum 1``);
-   images/s of the timed update.
+   images/s of the timed update;
+23. (left out: an image folder through the C++ loader needs libjpeg's
+   headers and library, which the card's machine lacks; the loader is held
+   on the CPU, ``tests/test_torch_native_loader.py``);
+24. real data on the card: token shards (``train-00000.npy`` of uint16 ids,
+   ``train-00001.npy`` of int32, written here with numpy) through
+   ``python -m distributeddeeplearning_tpu_torch.train --model gpt2_small
+   --batch-size 16 --seq-len 1024 --attn flash --data-dir SHARDS`` for 6
+   steps; ``loader=tokens`` in the log and the summary, #1-#3 12 launches a
+   step and no other kernel, losses finite and the first within 0.5 of
+   ln(vocab); tokens/s and the stream-wait share beside phase 8's
+   synthetic run. Then the host-to-card stream itself: the token source on
+   the card must hand out the host stream's batches exactly, and a stream
+   of ResNet-50-sized float32 image batches (512 x 224 x 224 x 3, made
+   with numpy; no decode) through pinned memory, the side stream's copy
+   and the cast to bf16, with the images/s it delivers and the device
+   memory it holds.
 
 Each phase prints its wall seconds. It prints a ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, "device": {...}}``. Any failed phase exits
@@ -2699,6 +2715,141 @@ def phase_lars_32k(kernels, failures) -> dict:
     return record
 
 
+# Token shards (phase 24): two shards of SHARD_ROWS rows each, 96 of which
+# the 6 steps read; the image stream's batches (512 x 224 x 224 x 3 f32).
+SHARD_ROWS = 64
+STREAM_BATCHES = 8
+
+
+class _GptVocab:
+    """What the loop's source reads of a causal LM: its vocabulary."""
+
+    class cfg:
+        vocab_size = VOCAB
+
+
+def phase_token_shards(kernels, failures, scratch: Path,
+                       synthetic: dict) -> dict:
+    """Phase 24, real data on the card: GPT-2 small's training path on
+    token shards written here, against phase 8's synthetic run; then the
+    host-to-card stream's token batches against the host stream's, and the
+    stream's rate and device memory at ResNet-50's image batch."""
+    import torch
+
+    from distributeddeeplearning_tpu_torch.data import imagenet, tokens
+    from distributeddeeplearning_tpu_torch.ops import flash_attention as fa
+    from distributeddeeplearning_tpu_torch.train import cli as train_cli
+    from distributeddeeplearning_tpu_torch.train import loop
+
+    shards = scratch / "token_shards"
+    shards.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(SEED)
+    for k, dtype in enumerate((np.uint16, np.int32)):
+        np.save(shards / f"train-{k:05d}.npy",
+                rng.integers(1, VOCAB, (SHARD_ROWS, TRAIN_SEQ)).astype(dtype))
+    argv = [a for a in TRAIN_ARGV if a != "--synthetic"] + [
+        "--data-dir", str(shards)]
+    torch.cuda.empty_cache()
+    reset_counts(kernels)
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        lines = run_train_cli(argv)
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = read_counts(kernels)
+    expected = {k["name"]: 12 * TRAIN_STEPS if k["module"] is fa else 0
+                for k in kernels}
+    metrics, _, summary = split_lines(lines)
+    losses = [x["loss"] for x in metrics]
+    pipeline = summary.get("input_pipeline", {})
+    header = [x for x in err.getvalue().splitlines() if "loader=" in x]
+    record = {"cli_s": cli_s, "launches": launches, "losses": losses,
+              "log": header, "input_pipeline": pipeline,
+              "tokens_per_sec": summary.get("tokens_per_sec"),
+              "synthetic_tokens_per_sec":
+                  synthetic["summary"].get("tokens_per_sec"),
+              "peak_memory_gb": summary.get("peak_memory_gb")}
+    if launches != expected:
+        failures.append(f"token-shard launches {launches}, expected "
+                        f"{expected}")
+    if (pipeline.get("loader") != "tokens"
+            or not any("loader=tokens" in x for x in header)):
+        failures.append(f"token-shard run did not resolve loader=tokens: "
+                        f"{header}, {pipeline}")
+    if (len(losses) != TRAIN_STEPS
+            or not all(np.isfinite(x) for x in losses)
+            or abs(losses[0] - np.log(VOCAB)) > FIRST_LOSS_TOL):
+        failures.append(f"token-shard losses {losses}: need {TRAIN_STEPS} "
+                        f"finite, the first within {FIRST_LOSS_TOL} of "
+                        f"ln {VOCAB}")
+    if not summary.get("tokens_per_sec"):
+        failures.append(f"token-shard summary without tokens/s: {summary}")
+
+    # The card's token batches against the host stream's, bit for bit.
+    config = train_cli.build_config(train_cli.parse_args(argv))
+    source = loop.make_source(config, _GptVocab(), "cuda")
+    host = tokens._batch_stream(config, train=True, start_step=0,
+                                objective="causal")
+    mismatched = 0
+    for step in range(TRAIN_STEPS):
+        want = next(host)
+        got = source.batch(step)
+        mismatched += int(not (
+            got["input_ids"].dtype == torch.int64
+            and got["input_ids"].device.type == "cuda"
+            and torch.equal(got["input_ids"].cpu(),
+                            torch.from_numpy(want["input_ids"]).long())
+            and torch.equal(got["attention_mask"].cpu(),
+                            torch.from_numpy(want["attention_mask"]))))
+    source.close()
+    record["card_batches_equal_host"] = TRAIN_STEPS - mismatched
+    if mismatched:
+        failures.append(f"{mismatched} of {TRAIN_STEPS} token batches on "
+                        f"the card differ from the host stream's")
+
+    # The stream alone at ResNet-50's batch: numpy f32 images through
+    # pinned memory, the side stream's copy and the cast to bf16.
+    images = np.random.default_rng(SEED).standard_normal(
+        (RESNET_BATCH, RESNET_IMAGE, RESNET_IMAGE, 3), np.float32)
+    labels = np.arange(RESNET_BATCH, dtype=np.int32) % RESNET_CLASSES
+
+    def host_batches():
+        for _ in range(STREAM_BATCHES + 1):
+            yield {"image": images, "label": labels}
+
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    stream = imagenet.StreamSource(
+        host_batches(), "cuda", depth=2,
+        casts={"image": torch.bfloat16, "label": torch.int64})
+    first = stream.batch(0)   # the first pin and copy, untimed
+    ok = torch.equal(first["image"].float().cpu(),
+                     torch.from_numpy(images).bfloat16().float())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for step in range(1, STREAM_BATCHES + 1):
+        out = stream.batch(step)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    ok = ok and out["label"].dtype == torch.int64
+    stream.close()
+    del first, out
+    record["image_stream"] = {
+        "batch": RESNET_BATCH, "batches": STREAM_BATCHES,
+        "images_per_sec": STREAM_BATCHES * RESNET_BATCH / elapsed,
+        "host_gb_per_sec": STREAM_BATCHES * images.nbytes / elapsed / 1e9,
+        "peak_device_gb_over_base":
+            (torch.cuda.max_memory_allocated() - base) / 1e9,
+        "exact": bool(ok)}
+    if not ok:
+        failures.append("the image stream's bf16 batch on the card is not "
+                        "the host batch cast to bf16")
+    log("# gpt2_small on token shards: " + json.dumps(record))
+    return record
+
+
 def main() -> int:
     import torch
 
@@ -2826,6 +2977,8 @@ def main() -> int:
         timed("dp_train", phase_dp_train, kernels, failures, scratch)
         timed("dp_vs_one_card_step", phase_dp_bitwise, failures, scratch)
         timed("resnet50_lars_32k", phase_lars_32k, kernels, failures)
+        timed("token_shards", phase_token_shards, kernels, failures,
+              scratch, train)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     log(f"# total: {time.perf_counter() - t_start:.2f} s")

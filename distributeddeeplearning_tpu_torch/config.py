@@ -8,12 +8,13 @@ field names and defaults, and the acceptance presets (``preset``).
 One default differs: ``TrainConfig.model`` is ``gpt2_small`` (the JAX
 default is a ResNet); every preset names its model. The token data is
 synthetic ids over the model's own vocabulary (GPT-2's 50257, Llama's
-32000), the image data synthetic NHWC images of ``image_size`` with
-``num_classes`` labels. ``dataset`` names the corpus whose size fixes an
-epoch, as in the JAX package: ``imagenet`` (1,281,167 training images), so
-every run, token models included, has an epoch length, and the warmup is
-``warmup_epochs`` of them (capped at the run's length less one step), as the
-JAX schedule gives it.
+32000) or token shards, the image data synthetic NHWC images of
+``image_size`` with ``num_classes`` labels or an image folder
+(``DataConfig.data_dir``). ``dataset`` names the corpus whose size fixes an
+epoch, as in the JAX package: ``imagenet`` (1,281,167 training images, or
+the images of an image-folder ``data_dir``), so every run, token models
+included, has an epoch length, and the warmup is ``warmup_epochs`` of them
+(capped at the run's length less one step), as the JAX schedule gives it.
 """
 
 from __future__ import annotations
@@ -172,11 +173,37 @@ class OptimizerConfig:
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
+    """Input pipeline settings (``data/__init__.py`` routes them)."""
+
     dataset: str = "imagenet"     # fixes the epoch length; the only one
                                   # the port knows
-    seq_len: int = 128
+    data_dir: Optional[str] = None  # an image folder (<split>/<wnid>/
+                                  # *.JPEG) or token shards (<split>-*.npy)
+    synthetic: bool = True        # made on the device; a data_dir is read
+                                  # only when this is off
+    synthetic_learnable: bool = False  # embed a class signal in synthetic
+                                  # images (top-1 becomes meaningful)
+    loader: str = "auto"          # auto | native (the C++ image-folder
+                                  # loader) | tf | grain (later slices)
     image_size: int = 224
     num_classes: int = 1000
+    shuffle_buffer: int = 16384   # tf.data's (a later slice); kept for the
+                                  # presets
+    prefetch_depth: int = 2       # batches the host stream reads ahead;
+                                  # the native loader's ring holds one more
+    # Per-batch watchdog of a streamed source: a pull that exceeds the
+    # timeout is retried up to loader_retries times, then the run fails
+    # with "loader stalled". 0 = off.
+    loader_timeout_s: float = 0.0
+    loader_retries: int = 2
+    seq_len: int = 128
+    # BERT's masked-LM batches from token shards (data/tokens.py): ids of
+    # this vocabulary, masked at this rate; mlm_max_predictions > 0 gives
+    # fixed-width (masked_positions, masked_labels). The causal LMs read
+    # their own vocabulary from the model.
+    vocab_size: int = 30522
+    mlm_mask_prob: float = 0.15
+    mlm_max_predictions: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -251,10 +278,12 @@ def preset(name: str) -> TrainConfig:
     ``config.preset`` builds it (fields the port does not carry left
     out)."""
     if name == "resnet50_synthetic":
-        return TrainConfig(model="resnet50", global_batch_size=32)
+        return TrainConfig(model="resnet50", global_batch_size=32,
+                           data=DataConfig(synthetic=True))
     if name == "resnet50_dp":
         return TrainConfig(model="resnet50", global_batch_size=256,
-                           parallel=ParallelConfig(data=8))
+                           parallel=ParallelConfig(data=8),
+                           data=DataConfig(synthetic=False))
     if name == "resnet152_dp":
         return TrainConfig(model="resnet152", global_batch_size=256,
                            parallel=ParallelConfig(data=8))

@@ -6,9 +6,13 @@ are NHWC bfloat16 standard normals with labels uniform in [0, classes).
 Both are drawn on the device from a ``torch.Generator`` seeded by (seed,
 step), so a batch depends only on its step and a resumed run sees the
 batches an unbroken one would. The bits are not JAX's PRNG bits.
+``learnable`` images add a class pattern keyed by (seed, label) to 0.7 of
+the noise, in JAX's bf16 arithmetic (``learnable_images``).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -41,17 +45,40 @@ class SyntheticCausalTokens:
                 "attention_mask": torch.ones_like(ids, dtype=torch.int32)}
 
 
+# The generator stream of the class patterns (JAX folds this into its key).
+PATTERN_STREAM = 0x5157
+
+
+def learnable_images(noise: torch.Tensor,
+                     patterns: torch.Tensor) -> torch.Tensor:
+    """``0.7 * noise + patterns`` as the JAX generator computes it in bf16:
+    0.7 rounded to bf16, each product and sum rounded to bf16."""
+    return noise * torch.tensor(0.7, dtype=noise.dtype) + patterns
+
+
 class SyntheticImages:
-    """Fake ImageNet batches (pure noise: no signal, a stable step cost):
-    ``{"image": (B, S, S, 3) bfloat16, "label": (B,) int64}``."""
+    """Fake ImageNet batches: ``{"image": (B, S, S, 3) bfloat16, "label":
+    (B,) int64}``. Pure noise by default (no signal, a stable step cost);
+    ``learnable`` embeds a fixed class-conditioned pattern under the noise,
+    the same at every step, so top-1 can rise above chance."""
 
     def __init__(self, batch_size: int, image_size: int = 224,
-                 num_classes: int = 1000, seed: int = 0, device=None):
+                 num_classes: int = 1000, seed: int = 0, device=None,
+                 learnable: bool = False):
         self.batch_size = batch_size
         self.image_size = image_size
         self.num_classes = num_classes
         self.seed = seed
         self.device = torch.device("cpu" if device is None else device)
+        self.learnable = learnable
+
+    def pattern(self, label: int) -> torch.Tensor:
+        """The (S, S, 3) bf16 pattern of class ``label``."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(step_seed(self.seed, label, PATTERN_STREAM))
+        size = self.image_size
+        return torch.randn((size, size, 3), generator=gen,
+                           device=self.device, dtype=torch.bfloat16)
 
     def batch(self, step: int) -> dict:
         gen = torch.Generator(device=self.device)
@@ -61,4 +88,21 @@ class SyntheticImages:
                             device=self.device, dtype=torch.bfloat16)
         label = torch.randint(0, self.num_classes, (self.batch_size,),
                               generator=gen, device=self.device)
+        if self.learnable:
+            classes, index = torch.unique(label, return_inverse=True)
+            table = torch.stack([self.pattern(int(c)) for c in classes])
+            image = learnable_images(image, table[index])
         return {"image": image, "label": label}
+
+
+def make_source(config, input_kind: str = "image", device=None, *,
+                vocab_size: Optional[int] = None):
+    """The synthetic source of the model's input kind: causal-LM ids over
+    ``vocab_size`` (the model's), or images of ``config.data``."""
+    d = config.data
+    if input_kind == "tokens":
+        return SyntheticCausalTokens(config.global_batch_size, d.seq_len,
+                                     vocab_size, config.seed, device)
+    return SyntheticImages(config.global_batch_size, d.image_size,
+                           d.num_classes, config.seed, device,
+                           learnable=d.synthetic_learnable)

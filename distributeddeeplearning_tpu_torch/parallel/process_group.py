@@ -43,7 +43,9 @@ class DataParallel:
     def shard(self, batch: dict) -> dict:
         """Rows ``[rank * B / world, (rank + 1) * B / world)`` of each
         tensor of the global ``batch``: JAX's sharding of the global batch
-        over the ``data`` axis."""
+        over the ``data`` axis. Only a synthetic source makes the whole
+        global batch (``data.RankRows``); a streamed one reads the rank's
+        rows alone."""
         out = {}
         for key, value in batch.items():
             rows = value.shape[0] // self.world

@@ -5,11 +5,13 @@ resume from the newest, or restore it for evaluation only.
 The JAX package writes orbax checkpoints; reading those needs JAX and comes
 with a later slice. A checkpoint here is one file, ``step_<n>.pt``, written
 to a temporary name and renamed, so a crash never leaves a torn newest
-file.
+file. ``stream_meta.json`` beside them pins the data loader the run
+resolved, as the JAX checkpointer's does.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import re
 from pathlib import Path
@@ -66,6 +68,43 @@ class Checkpointer:
             return False
         state.load_state_dict(saved)
         return True
+
+    def verify_or_record_stream_meta(self, meta: dict, dp=None) -> dict:
+        """Pin data-stream facts (the resolved loader) to the directory:
+        the first run records ``meta``; a later run that resolved another
+        value fails loudly instead of resuming on another sample stream.
+        Under ``dp`` the ranks must agree, and only rank 0 writes. Returns
+        what was recorded before."""
+        if dp is not None:
+            everyone: list = [None] * dp.world
+            torch.distributed.all_gather_object(everyone, meta)
+            if any(m != meta for m in everyone):
+                raise RuntimeError(
+                    f"data-stream metadata differs across ranks: "
+                    f"{everyone!r}. Set the pipeline explicitly (e.g. "
+                    f"--loader) so every rank resolves alike")
+        path = self.dir / "stream_meta.json"
+        recorded = json.loads(path.read_text()) if path.exists() else {}
+        clashes = {k: (recorded[k], v) for k, v in meta.items()
+                   if k in recorded and recorded[k] != v}
+        if clashes:
+            raise RuntimeError(
+                f"checkpoint stream metadata mismatch in {path}: "
+                + "; ".join(f"{k}: recorded {old!r}, this run resolved "
+                            f"{new!r}" for k, (old, new) in clashes.items())
+                + ". Resuming with a different data pipeline would change "
+                "the post-resume sample stream. Set the field explicitly "
+                "(e.g. --loader) to match the original run, or start a "
+                "fresh checkpoint_dir.")
+        if dp is not None:
+            dp.barrier()   # every rank has read before rank 0 writes
+        if (dp is None or dp.rank == 0) and any(
+                recorded.get(k) != v for k, v in meta.items()):
+            self.dir.mkdir(parents=True, exist_ok=True)
+            tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+            tmp.write_text(json.dumps(dict(recorded, **meta)))
+            os.replace(tmp, path)
+        return recorded
 
     def restore_for_eval(self, state: TrainState) -> bool:
         """Load what evaluation needs from the newest checkpoint: the

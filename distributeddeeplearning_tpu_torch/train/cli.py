@@ -23,6 +23,12 @@ a ``torchrun`` launch.
     python -m distributeddeeplearning_tpu_torch.train --config \
         resnet50_lars_32k --dp 1 --accum 64 --fused-block --fused-conv3 \
         --synthetic --steps 10
+    python -m distributeddeeplearning_tpu_torch.train --model resnet50 \
+        --batch-size 512 --fused-block --fused-conv3 --data-dir IMAGES \
+        --eval-batches 10 --steps 1000
+    python -m distributeddeeplearning_tpu_torch.train --model gpt2_small \
+        --batch-size 16 --seq-len 1024 --attn flash --data-dir SHARDS \
+        --steps 1000
 
 The counterpart of the root ``train.py`` for these models, with its flags
 where they apply: a preset by name (``--config``, ``--list-configs``)
@@ -33,18 +39,23 @@ data parallelism (``--dp N`` under ``torchrun --nproc-per-node N``: NCCL
 on the card, gloo with ``--device cpu``; the bucketed gradient all-reduce,
 ``--allreduce-*``; ``--sync-bn``), gradient accumulation (``--accum``) and
 a profile of a few steps (``--profile-steps``). Data is synthetic token ids
-or images made on the device; weights start random from ``--seed``. Rank 0
-prints one JSON metric line per log step and a final ``{"summary": ...}``
-line. Runs on the GPU unless ``--device cpu`` is given. Without
-``--steps`` an image run lasts ``--epochs`` ImageNet epochs. Flags and
-presets of later slices (a mesh axis other than data above 1, ZeRO, real
-data, BERT) raise instead of being ignored.
+or images made on the device (``--synthetic``, the default), or read from
+``--data-dir``: an image folder (``train/<wnid>/*.JPEG``, ``val/`` for
+eval) through the C++ loader, or token shards (``train-*.npy``,
+``validation-*.npy``), each rank reading its own rows; weights start
+random from ``--seed``. Rank 0 prints one JSON metric line per log step and
+a final ``{"summary": ...}`` line. Runs on the GPU unless ``--device cpu``
+is given. Without ``--steps`` an image run lasts ``--epochs`` epochs of
+ImageNet, or of the image folder. Flags and presets of later slices (a
+mesh axis other than data above 1, ZeRO, TFRecords, grain, BERT) raise
+instead of being ignored.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
 from typing import Optional
 
@@ -60,7 +71,6 @@ from distributeddeeplearning_tpu_torch.train.optim import check_ema_decay
 # brings each: (flag, value that is a no-op, later slice).
 _LATER = (
     ("optimizer_sharding", None, "ZeRO optimizer sharding"),
-    ("data_dir", None, "real data (the loaders)"),
 )
 # Mesh flags: each overrides an axis of the config's ParallelConfig; the
 # loop takes --dp at the world size and refuses the others above 1
@@ -84,7 +94,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--epochs", type=float, default=None)
     p.add_argument("--seq-len", type=int, default=None)
     p.add_argument("--image-size", type=int, default=None,
-                   help="side of the synthetic images (default 224)")
+                   help="side of the synthetic images, or the decode and "
+                        "crop target of an image folder's (default 224)")
     p.add_argument("--num-classes", type=int, default=None,
                    help="classes of an image model (default 1000)")
     p.add_argument("--fused-bn", action="store_true",
@@ -122,8 +133,23 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--warmup-steps", type=int, default=2,
                    help="steps excluded from throughput timing")
     p.add_argument("--synthetic", action="store_true",
-                   help="synthetic token ids or images (the only data the "
-                        "port has)")
+                   help="synthetic token ids or images made on the device "
+                        "(the default; --data-dir overrides it)")
+    p.add_argument("--data-dir", default=None,
+                   help="read the data from here: an image folder "
+                        "(train/<wnid>/*.JPEG, val/ for eval) or token "
+                        "shards (train-*.npy, validation-*.npy)")
+    p.add_argument("--loader", default=None,
+                   choices=["auto", "native", "tf", "grain"],
+                   help="pipeline of an image --data-dir: auto (the native "
+                        "C++ loader for a folder), native; tf and grain "
+                        "come with later slices")
+    p.add_argument("--loader-timeout", type=float, default=None,
+                   help="data watchdog: seconds to wait per host batch "
+                        "before retrying (0 = watchdog off, the default)")
+    p.add_argument("--loader-retries", type=int, default=None,
+                   help="data watchdog: retries per batch before declaring "
+                        "the loader stalled (default 2)")
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--checkpoint-every", type=int, default=None)
     p.add_argument("--no-resume", action="store_true",
@@ -262,6 +288,27 @@ def build_config(args: argparse.Namespace) -> cfglib.TrainConfig:
     data = {k: v for k, v in (("seq_len", args.seq_len),
                               ("image_size", args.image_size),
                               ("num_classes", args.num_classes)) if v}
+    # train.py's precedence: --synthetic, then --data-dir, which turns
+    # synthetic data off.
+    if args.synthetic:
+        data["synthetic"] = True
+    if args.data_dir:
+        if not os.path.isdir(args.data_dir):
+            raise SystemExit(f"--data-dir {args.data_dir}: no such "
+                             f"directory")
+        data.update(data_dir=args.data_dir, synthetic=False)
+    if args.loader:
+        data["loader"] = args.loader
+    if args.loader_timeout is not None:
+        if args.loader_timeout < 0:
+            raise SystemExit(f"--loader-timeout must be >= 0 "
+                             f"(got {args.loader_timeout})")
+        data["loader_timeout_s"] = args.loader_timeout
+    if args.loader_retries is not None:
+        if args.loader_retries < 0:
+            raise SystemExit(f"--loader-retries must be >= 0 "
+                             f"(got {args.loader_retries})")
+        data["loader_retries"] = args.loader_retries
     if data:
         updates["data"] = dataclasses.replace(cfg.data, **data)
     if args.allreduce_bucket_mb is not None and args.allreduce_bucket_mb < 0:

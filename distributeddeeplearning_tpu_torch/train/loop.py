@@ -5,18 +5,24 @@ process group (``torchrun``; ``parallel/process_group.py``).
 
 Builds the model (float32 masters, compute dtype from the precision
 policy), the optimizer and schedule (warmup in epochs of
-``steps_per_epoch``), the EMA and loss-scale state, the synthetic source of
-the model's input kind (token ids or images) and the checkpointer; resumes
-from the newest checkpoint; runs the steps; prints one JSON metric line per
-log step; evaluates on a held-out synthetic set every
-``eval_every_epochs`` and at the end; and returns the run summary.
+``steps_per_epoch``), the EMA and loss-scale state, the source of the
+model's input kind (token ids or images: synthetic, or read from
+``data.data_dir`` through ``data.make_source``, from the resumed step) and
+the checkpointer, which pins the resolved loader; resumes from the newest
+checkpoint; runs the steps; prints one JSON metric line per log step;
+evaluates on a held-out set (synthetic, or the data's ``val/`` split or
+``validation-*`` shards) every ``eval_every_epochs`` and at the end; and
+returns the run summary, whose ``input_pipeline`` block holds the loader and
+the seconds the steps waited for host batches.
 Throughput excludes the first ``warmup_steps`` steps (first-call and
 allocation costs), the evals and the final checkpoint. A ``batch_ramp``
 runs as one segment a stage (``run_ramp``).
 
-Data parallel: every rank builds the same weights from the seed and each
-step's global batch, and trains on its rows ``[r B / N, (r + 1) B / N)``
-(eval batches likewise); the step all-reduces the gradients
+Data parallel: every rank builds the same weights from the seed and trains
+on its rows of each step's global batch: rows ``[r B / N, (r + 1) B / N)``
+of a synthetic batch (eval batches likewise), or a streamed source's own
+rows (every N-th image or token row, from rank r); the step all-reduces
+the gradients
 (``train/steps.py``). Only rank 0 prints and writes checkpoints, with a
 barrier after each save; every rank restores. Throughput counts the global
 batch.
@@ -30,6 +36,7 @@ launch_counts``) and the peak device memory.
 
 from __future__ import annotations
 
+import dataclasses
 import inspect
 import json
 import math
@@ -42,10 +49,11 @@ from typing import Any, Callable, Optional
 import torch
 
 from distributeddeeplearning_tpu_torch import resolve_device
+from distributeddeeplearning_tpu_torch import data as datalib
 from distributeddeeplearning_tpu_torch.config import (
     TrainConfig, resolve_precision)
-from distributeddeeplearning_tpu_torch.data.synthetic import (
-    SyntheticCausalTokens, SyntheticImages)
+from distributeddeeplearning_tpu_torch.data.imagenet import (
+    TRAIN_SPLIT_SIZE, folder_index)
 from distributeddeeplearning_tpu_torch.models import get_model, model_spec
 from distributeddeeplearning_tpu_torch.models.resnet import (
     SYNC_BN_WITH_FUSED_BN)
@@ -61,9 +69,6 @@ from distributeddeeplearning_tpu_torch.train.steps import (
     make_train_step)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-# ImageNet-1k's training split, the JAX package's
-# ``data/imagenet.py:TRAIN_SPLIT_SIZE``.
-TRAIN_SPLIT_SIZE = 1_281_167
 # Mesh axes the port refuses above 1, with the slice that brings each.
 _GSPMD = "the GSPMD slice (FSDP and tensor parallelism)"
 _LATER_AXES = (
@@ -77,12 +82,21 @@ _FUSED = ("fused_bn", "fused_block", "fused_conv3")
 
 
 def steps_per_epoch(config: TrainConfig) -> Optional[int]:
-    """Explicit ``config.steps_per_epoch``, else the dataset's training
-    split over the global batch (ImageNet: 1,281,167 images, for token
-    models too, as the JAX loop counts it), else None. An imagefolder
-    ``data_dir``'s own count comes with the data loaders."""
+    """Explicit ``config.steps_per_epoch``, else the images of an
+    image-folder ``data_dir``'s ``train/`` split over the global batch,
+    else the dataset's training split over it (ImageNet: 1,281,167 images,
+    for token models and token shards too, as the JAX loop counts it),
+    else None."""
     if config.steps_per_epoch:
         return config.steps_per_epoch
+    if config.data.data_dir:
+        # The loaders' own listing, so the epoch agrees with the batches
+        # they yield; a directory of token shards has no train/ split.
+        try:
+            n = len(folder_index(config.data.data_dir, "train")[0])
+            return max(n // config.global_batch_size, 1)
+        except FileNotFoundError:
+            pass
     if config.data.dataset == "imagenet":
         return max(TRAIN_SPLIT_SIZE // config.global_batch_size, 1)
     return None
@@ -98,7 +112,9 @@ def check_layout(config: TrainConfig, world: Optional[int] = None) -> None:
     the ranks and each shard over ``--accum``; ``--sync-bn`` needs a
     BatchNorm model without ``fused_bn`` and a process group. Also refuses
     a dataset other than ImageNet (BERT's MLM data) and a fused BatchNorm
-    flag on a model without that path."""
+    flag on a model without that path. The data source is checked apart
+    (``data.check_loader``): any ``data_dir`` and loader the port reads
+    splits over the ranks as a synthetic batch does."""
     for axis, flag, later in _LATER_AXES:
         size = getattr(config.parallel, axis)
         if size > 1:
@@ -219,15 +235,25 @@ def _is_image(config: TrainConfig) -> bool:
     return model_spec(config.model).input_kind == "image"
 
 
-def make_source(config: TrainConfig, model, device):
-    """The synthetic batches of the model's input kind."""
-    if _is_image(config):
-        return SyntheticImages(config.global_batch_size,
-                               config.data.image_size,
-                               config.data.num_classes, config.seed, device)
-    return SyntheticCausalTokens(config.global_batch_size,
-                                 config.data.seq_len, model.cfg.vocab_size,
-                                 config.seed, device)
+def make_source(config: TrainConfig, model, device,
+                dp: Optional[DataParallel] = None, start_step: int = 0,
+                train: bool = True):
+    """This rank's batches of the model's input kind (``data.make_source``):
+    synthetic (the whole global batch without ``dp``), or read from
+    ``config.data.data_dir`` from ``start_step`` (``train=False``: the
+    held-out split, once)."""
+    image = _is_image(config)
+    return datalib.make_source(
+        config, model_spec(config.model).input_kind, device, dp=dp,
+        start_step=start_step, train=train,
+        objective="classify" if image else "causal",
+        vocab_size=None if image else model.cfg.vocab_size)
+
+
+def _close(source) -> None:
+    close = getattr(source, "close", None)
+    if close is not None:
+        close()
 
 
 def _sync(device: torch.device) -> None:
@@ -236,23 +262,63 @@ def _sync(device: torch.device) -> None:
 
 
 class _EvaluatorBase:
-    """Held-out eval over ``num_batches`` synthetic batches at batch index
-    ``SYNTHETIC_EVAL_OFFSET`` on: disjoint from every training step's
-    batch, and the same set at every eval."""
+    """Held-out eval over ``num_batches`` batches, the rank's rows of each.
+    Synthetic data: the batches at index ``SYNTHETIC_EVAL_OFFSET`` on,
+    disjoint from every training step's batch, the same set at every
+    eval. Real data: the held-out split read from its start at every eval
+    (a fresh source that reads nothing ahead); a split that runs dry
+    scores the batches it has, with a warning, and under ``dp`` every rank
+    stops where the first one ran dry."""
 
     SYNTHETIC_EVAL_OFFSET = 1 << 30
     metric_name: str
     best: Callable
 
-    def __init__(self, source, num_batches: int, eval_step,
-                 shard: Callable[[dict], dict]):
-        self.source, self.num_batches = source, num_batches
-        self.eval_step, self.shard = eval_step, shard
+    def __init__(self, make: Callable[..., Any], synthetic: bool,
+                 num_batches: int, eval_step, dp: Optional[DataParallel],
+                 device):
+        self.num_batches, self.eval_step, self.dp = num_batches, eval_step, dp
+        self.synthetic, self.device = synthetic, device
+        self._make = make
+        self._synth_source = make() if synthetic else None
 
     def __call__(self, state: TrainState) -> float:
-        outs = [self.eval_step(state, self.shard(self.source.batch(
-            self.SYNTHETIC_EVAL_OFFSET + j))) for j in range(self.num_batches)]
+        if self.synthetic:
+            return self._accumulate([
+                self.eval_step(state, self._synth_source.batch(
+                    self.SYNTHETIC_EVAL_OFFSET + j))
+                for j in range(self.num_batches)])
+        source = self._make()
+        outs = []
+        try:
+            for j in range(self.num_batches):
+                try:
+                    batch = source.batch(j)
+                except StopIteration:
+                    batch = None
+                if not self._all_have(batch is not None):
+                    if not outs:
+                        raise RuntimeError(
+                            "validation split yielded no full batch; "
+                            "shrink the batch or provide more held-out "
+                            "data")
+                    warnings.warn(
+                        f"validation split exhausted after {j} of "
+                        f"{self.num_batches} eval batches; scoring the "
+                        f"available ones")
+                    break
+                outs.append(self.eval_step(state, batch))
+        finally:
+            _close(source)
         return self._accumulate(outs)
+
+    def _all_have(self, have: bool) -> bool:
+        if self.dp is None:
+            return have
+        flag = torch.tensor([int(have)], dtype=torch.int32,
+                            device=self.device)
+        torch.distributed.all_reduce(flag, op=torch.distributed.ReduceOp.MIN)
+        return bool(flag.item())
 
 
 class _Evaluator(_EvaluatorBase):
@@ -284,16 +350,21 @@ def make_evaluator(config: TrainConfig, model, device, num_batches: int,
                    dp: Optional[DataParallel] = None) -> _EvaluatorBase:
     """The held-out evaluator; under ``dp`` each rank scores its rows of
     every eval batch and the counts are summed over the ranks."""
-    source = make_source(config, model, device)
+    synthetic = datalib.resolve_loader(
+        config, model_spec(config.model).input_kind) == "synthetic"
+    held_out = config.replace(data=dataclasses.replace(config.data,
+                                                       prefetch_depth=0))
+
+    def make():
+        if synthetic:
+            return make_source(config, model, device, dp)
+        return make_source(held_out, model, device, dp, 0, False)
+
     if _is_image(config):
-        return _Evaluator(source, num_batches, make_eval_step(config, dp),
-                          _sharder(dp))
-    return _TokenEvaluator(source, num_batches, make_token_eval_step(config),
-                           _sharder(dp))
-
-
-def _sharder(dp: Optional[DataParallel]) -> Callable[[dict], dict]:
-    return (lambda batch: batch) if dp is None else dp.shard
+        return _Evaluator(make, synthetic, num_batches,
+                          make_eval_step(config, dp), dp, device)
+    return _TokenEvaluator(make, synthetic, num_batches,
+                           make_token_eval_step(config), dp, device)
 
 
 class _BadStepTracker:
@@ -462,6 +533,7 @@ def run(config: TrainConfig, *, device=None, warmup_steps: int = 2,
     elif total_steps <= 0:
         raise ValueError(f"total_steps must be positive (got {total_steps})")
     check_layout(config, launch_world())
+    datalib.check_loader(config, model_spec(config.model).input_kind)
     dp, device = process_group.join(resolve_device(device))
     rank = 0 if dp is None else dp.rank
     if rank != 0:
@@ -508,6 +580,7 @@ def _run_segment(config: TrainConfig, *, device: torch.device,
     stages do not chain through checkpoints and emits no summary)."""
     total_steps = config.total_steps or 0
     rank = 0 if dp is None else dp.rank
+    loader = datalib.check_loader(config, model_spec(config.model).input_kind)
     state, sched = build_state(config.replace(total_steps=max(total_steps,
                                                               1)),
                                device, carried)
@@ -515,6 +588,8 @@ def _run_segment(config: TrainConfig, *, device: torch.device,
     if config.checkpoint_dir:
         ckpt = Checkpointer(config.checkpoint_dir,
                             config.checkpoint_every_steps)
+        # A resume under another loader would read another sample stream.
+        ckpt.verify_or_record_stream_meta({"loader": loader}, dp)
         restored = config.resume and (ckpt.restore_for_eval(state)
                                       if restore_for_eval
                                       else ckpt.restore(state))
@@ -522,11 +597,11 @@ def _run_segment(config: TrainConfig, *, device: torch.device,
             print(f"# resumed from step {state.step}", file=sys.stderr,
                   flush=True)
     start = state.step
-    end_step = max(total_steps, start)
     if rank == 0:
         print(f"# model={config.model} "
               f"global_batch={config.global_batch_size} "
               f"precision={resolve_precision(config).describe()} "
+              f"loader={loader} "
               f"optimizer={config.optimizer.name} "
               f"batch_ramp={optim.ramp_describe(config)}"
               + (f" | dp={dp.world} sync_bn={config.sync_bn} allreduce="
@@ -535,8 +610,29 @@ def _run_segment(config: TrainConfig, *, device: torch.device,
                  if config.grad_accum_steps > 1 else "")
               + (f" | resumed@{start}" if start else ""), file=sys.stderr,
               flush=True)
-    source = make_source(config, state.model, device)
-    shard = _sharder(dp)
+    source = (make_source(config, state.model, device, dp, start)
+              if start < total_steps else None)
+    try:
+        return _train(config, state, source, sched, ckpt, loader,
+                      device=device, dp=dp, warmup_steps=warmup_steps,
+                      emit=emit, eval_batches=eval_batches,
+                      return_state=return_state, ramp_stage=ramp_stage,
+                      profile=profile)
+    finally:
+        _close(source)
+
+
+def _train(config: TrainConfig, state: TrainState, source, sched,
+           ckpt: Optional[Checkpointer], loader: str, *,
+           device: torch.device, dp: Optional[DataParallel],
+           warmup_steps: int, emit: Callable[[str], None], eval_batches: int,
+           return_state: bool, ramp_stage: bool,
+           profile: Optional[StepProfiler]) -> dict:
+    """The steps of ``_run_segment`` from ``state.step`` on ``source``,
+    the evals and the summary."""
+    total_steps = config.total_steps or 0
+    start = state.step
+    end_step = max(total_steps, start)
     train_step = make_train_step(config, sched, dp)
     evaluator = None
     eval_every_steps = 0
@@ -555,10 +651,18 @@ def _run_segment(config: TrainConfig, *, device: torch.device,
         torch.cuda.reset_peak_memory_stats(device)
     t_timed = time.perf_counter() if warmup == 0 else None
     t_last, step_last = time.perf_counter(), start
+    wait_s = timed_wait_s = 0.0   # host seconds in source.batch
     while state.step < total_steps:
         if profile is not None:
             profile.before(state.step, device)
-        metrics = train_step(state, shard(source.batch(state.step)))
+        t0 = time.perf_counter()
+        batch = source.batch(state.step)
+        waited = time.perf_counter() - t0
+        wait_s += waited
+        if t_timed is not None:
+            timed_wait_s += waited
+        metrics = train_step(state, batch)
+        del batch   # the stream's next batch may take its memory
         bad_tracker.push(metrics)
         i = state.step
         if profile is not None:
@@ -599,6 +703,10 @@ def _run_segment(config: TrainConfig, *, device: torch.device,
         "device": _device_name(device),
         "precision": resolve_precision(config).describe(),
         "bad_steps": bad_tracker.total,
+        "input_pipeline": {
+            "loader": loader,
+            "prefetch_depth": datalib.effective_prefetch_depth(config),
+            "data_wait_s": wait_s},
     }
     if dp is not None:
         summary["data_parallel"] = {
@@ -618,6 +726,8 @@ def _run_segment(config: TrainConfig, *, device: torch.device,
             summary["tokens_per_sec"] = (examples * config.data.seq_len
                                          / elapsed)
         summary["steps_per_sec"] = timed_steps / elapsed
+        summary["input_pipeline"]["data_wait_frac"] = min(
+            timed_wait_s / elapsed, 1.0)
     if evaluator is not None:
         final_val = evaluator(state)
         evals.append((end_step, final_val))

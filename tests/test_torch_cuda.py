@@ -1059,3 +1059,95 @@ def test_resnet_fused_conv3_step_on_card_matches_cpu(cuda_device,
     for (name, a), b in zip(cpu.named_buffers(), card.buffers()):
         torch.testing.assert_close(b.cpu(), a, rtol=1e-5, atol=1e-5,
                                    msg=name)
+
+
+# ---------------------------------------------------------------------------
+# The data path on the card: the host-to-card stream, the native loader's
+# build
+# ---------------------------------------------------------------------------
+
+def _numbered_images(n, fail_at=None):
+    rng = np.random.default_rng(8)
+    for k in range(n):
+        if k == fail_at:
+            raise OSError(f"unreadable image at batch {k}")
+        yield {"image": rng.standard_normal((8, 16, 16, 3)).astype(
+            np.float32), "label": np.full((8,), k, np.int32)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [0, 2])
+def test_image_stream_on_card_is_the_host_batch_cast(cuda_device, depth):
+    """Pinned memory, the side stream's copy and the cast to bf16 on the
+    card give the host batch cast on the CPU, in step order; a producer's
+    error reaches the step it would have fed."""
+    from distributeddeeplearning_tpu_torch.data import imagenet
+
+    src = imagenet.StreamSource(
+        _numbered_images(6, fail_at=4), cuda_device, depth=depth,
+        casts={"image": torch.bfloat16, "label": torch.int64})
+    for k, want in enumerate(_numbered_images(4)):
+        got = src.batch(k)
+        # A kernel of the step's stream reads the batch after the copy.
+        got_image = (got["image"] * 1).cpu()
+        assert got["image"].device.type == "cuda"
+        assert got["label"].dtype == torch.int64
+        assert torch.equal(got_image,
+                           torch.from_numpy(want["image"]).bfloat16())
+        assert torch.equal(got["label"].cpu(),
+                           torch.full((8,), k, dtype=torch.int64))
+    with pytest.raises(OSError, match="batch 4"):
+        src.batch(4)
+    src.close()
+
+
+@pytest.mark.cuda
+def test_token_stream_on_card_matches_host(cuda_device, tmp_path):
+    from distributeddeeplearning_tpu_torch import config as tconfig
+    from distributeddeeplearning_tpu_torch import data as tdata
+    from distributeddeeplearning_tpu_torch.data import tokens
+
+    rng = np.random.default_rng(3)
+    for k, dtype in enumerate((np.uint16, np.int32)):
+        np.save(tmp_path / f"train-{k:05d}.npy",
+                rng.integers(1, 1000, (10, 32)).astype(dtype))
+    cfg = tconfig.TrainConfig(
+        model="gpt_nano", global_batch_size=4, seed=2,
+        data=tconfig.DataConfig(data_dir=str(tmp_path), synthetic=False,
+                                seq_len=32))
+    src = tdata.make_source(cfg, "tokens", cuda_device, start_step=1,
+                            objective="causal", vocab_size=1024)
+    host = tokens._batch_stream(cfg, train=True, start_step=1,
+                                objective="causal")
+    for step in range(1, 7):
+        want, got = next(host), src.batch(step)
+        assert got["input_ids"].dtype == torch.int64
+        assert torch.equal(got["input_ids"].cpu(),
+                           torch.from_numpy(want["input_ids"]).long())
+    src.close()
+
+
+@pytest.mark.cuda
+def test_native_loader_builds_into_the_port_cache_or_refuses(cuda_device,
+                                                             tmp_path):
+    """Where libjpeg's headers are, the loader builds into the port's
+    ``.cache/torch_kernels/``; where they are not (or libjpeg's library is
+    missing), an image folder is refused with the build's or the load's
+    error, never read as synthetic data."""
+    from distributeddeeplearning_tpu_torch import config as tconfig
+    from distributeddeeplearning_tpu_torch import data as tdata
+    from distributeddeeplearning_tpu_torch.data import native
+    from distributeddeeplearning_tpu_torch.ops import _build
+
+    del cuda_device
+    (tmp_path / "train" / "n00000000").mkdir(parents=True)
+    cfg = tconfig.TrainConfig(model="resnet_nano", data=tconfig.DataConfig(
+        data_dir=str(tmp_path), synthetic=False))
+    if native.available():
+        assert native.library_path().parent == _build.CACHE
+        assert native.library_path().exists()
+        assert tdata.check_loader(cfg, "image") == "native"
+    else:
+        assert "native loader unavailable" in native.unavailable_reason()
+        with pytest.raises(SystemExit, match="native loader unavailable"):
+            tdata.check_loader(cfg, "image")

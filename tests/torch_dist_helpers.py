@@ -217,3 +217,33 @@ def dp_cases(rank: int, world: int, payload: dict) -> dict:
         out["cli"].append(buf.getvalue())
     return out
 
+
+
+# ---------------------------------------------------------------------------
+# Streamed data
+# ---------------------------------------------------------------------------
+
+def data_cases(rank: int, world: int, payload: dict) -> dict:
+    """This rank's first ``payload["steps"]`` image batches of
+    ``payload["folder"]`` at ``payload["seed"]`` through the loop's source
+    from step ``payload["start"]`` (numpy), and the output of the CLI run
+    ``payload["cli"]``."""
+    import os
+
+    from distributeddeeplearning_tpu_torch.train import loop
+
+    os.cpu_count = lambda: 3   # the loader's default: two threads a rank
+    cfg = nano_config(world, data=tconfig.DataConfig(
+        data_dir=payload["folder"], synthetic=False,
+        image_size=payload["image_size"], num_classes=CLASSES),
+        global_batch_size=payload["batch"], seed=payload["seed"])
+    start = payload["start"]
+    source = loop.make_source(cfg, None, "cpu", DataParallel(rank, world),
+                              start)
+    batches = [{k: v.numpy() for k, v in source.batch(step).items()}
+               for step in range(start, start + payload["steps"])]
+    source.close()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        tcli.main(payload["cli"])
+    return {"batches": batches, "cli": buf.getvalue()}
