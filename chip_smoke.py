@@ -146,7 +146,26 @@ Run from the root of a checkout. Phases:
    of ResNet-50-sized float32 image batches (512 x 224 x 224 x 3, made
    with numpy; no decode) through pinned memory, the side stream's copy
    and the cast to bf16, with the images/s it delivers and the device
-   memory it holds.
+   memory it holds;
+25. BERT-base masked-LM on the card: ``python -m
+   distributeddeeplearning_tpu_torch.train --config bert_base_mlm --dp 1
+   --attn flash`` for 6 steps at the preset's 256 x 128 (bf16 over f32
+   masters, AdamW, dropout 0.1), on synthetic batches with the dense head,
+   then on token shards written here with PAD tails of varied length
+   (the key-padding mask live) and ``--mlm-max-predictions -1``; each
+   run: #1-#3 12 launches a step and no other kernel, losses finite and
+   the first within 0.5 of ln 30522; tokens/s, peak memory and a
+   device-time profile of one step. Before it, the flash kernels at
+   BERT-base's shape (256 x 128, 12 heads of 64, full, key padding, rate
+   0.1) and ViT-B/16's (256 x 197, full, rate 0) against their plain
+   versions, with their times, bounds and SDPA's;
+26. ViT-B/16 on the card: ``--model vit_b16 --batch-size 256 --synthetic
+   --attn flash`` for 6 steps (224 px, S = 197, 1000 classes, bf16); #1-#3
+   12 launches a step and no other kernel, losses finite and the first
+   within 0.3 of ln 1000; images/s, peak memory and the profile;
+27. one f32 training step at full width through flash and through dense
+   from the same weights and batch, held as phase 9: BERT-base at batch 8
+   x 128 with padded keys and dropout 0.1, and ViT-B/16 at batch 8.
 
 Each phase prints its wall seconds. It prints a ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, "device": {...}}``. Any failed phase exits
@@ -388,25 +407,35 @@ def device_ms(fn) -> float:
     return ms
 
 
-def kernels_ms(fn, n: int = 5) -> float:
-    """Mean device time of one call of ``fn``: the durations of the kernels
-    it launches, from torch.profiler's records of ``n`` calls after a
-    warm-up. For calls a CUDA graph cannot capture here, such as autograd's
-    backward of a tensor made outside the capture."""
+def backward_ms(forward, inputs, grad_out) -> float:
+    """Mean device time of autograd's backward of ``forward()`` to
+    ``inputs`` (leaf tensors) with ``grad_out``: the forward captured in
+    one CUDA graph and the backward in a second on the same stream and
+    memory pool, as ``torch.cuda.make_graphed_callables`` captures them,
+    and the backward graph replayed. No profiler: its records of the
+    backward came back empty or incomplete in some runs on the card."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture, as graphs want
+        for _ in range(2):
+            torch.autograd.grad(forward(), inputs, grad_out)
+    torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    if not us:
-        raise RuntimeError("the profiler recorded no kernels")
-    return us / n / 1e3
+    fwd_graph, bwd_graph = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+    with torch.cuda.graph(fwd_graph):
+        out = forward()
+    with torch.cuda.graph(bwd_graph, pool=fwd_graph.pool()):
+        torch.autograd.grad(out, inputs, grad_out, retain_graph=True)
+    fwd_graph.replay()
+    bwd_graph.replay()
+    torch.cuda.synchronize()
+    per_call = max(_events_ms(bwd_graph.replay, 1), 1e-3)
+    ms = _events_ms(bwd_graph.replay,
+                    int(min(200, max(3, MIN_TOTAL_MS / per_call))))
+    del fwd_graph, bwd_graph, out
+    return ms
 
 
 # Products per live (query, key) pair: the forward's s = q.k and p.v; dq's
@@ -941,15 +970,12 @@ def bwd_case(fa, s, b, h, d, dtype, causal, lengths, rate, seed,
         with torch.no_grad():
             lib_fwd = device_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=keep))
-        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep)
         dot = do.transpose(1, 2)
-
-        def lib_grad():
-            return torch.autograd.grad(out, (qt, kt, vt), dot,
-                                       retain_graph=True)
-
-        lib_bwd = kernels_ms(lib_grad)
-        lib_bwd_call = call_ms(lib_grad)
+        lib_bwd = backward_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=keep), (qt, kt, vt), dot)
+        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep)
+        lib_bwd_call = call_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True))
         del out
     rows = []
     if rate > 0.0 or fwd:
@@ -1100,73 +1126,96 @@ TRAIN_ARGV = ["--model", "gpt2_small", "--batch-size", str(TRAIN_BATCH),
               "--seed", str(SEED)]
 
 
-def phase_train(kernels, failures) -> dict:
-    """The training path: GPT-2 small at full width through the CLI, then a
-    device-time profile of one step of the same configuration."""
+def model_step_profile(label: str, argv, per_example: int) -> dict:
+    """A device-time profile of one training step of a CLI configuration
+    (``step_profile``) on its source's first batch, with the examples
+    (``per_example`` = 1) or tokens (the sequence length) a second of its
+    unprofiled wall time and the peak device memory."""
+    import torch
+
+    from distributeddeeplearning_tpu_torch.train import cli as train_cli
+    from distributeddeeplearning_tpu_torch.train import loop, steps
+
+    config = train_cli.build_config(train_cli.parse_args(argv))
+    state, sched = loop.build_state(config, torch.device("cuda"))
+    train_step = steps.make_train_step(config, sched)
+    source = loop.make_source(config, state.model, torch.device("cuda"))
+    batch = source.batch(0)
+    torch.cuda.reset_peak_memory_stats()
+    profile = step_profile(label, lambda: train_step(state, batch),
+                           grad=True)
+    profile["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    unit = "tokens" if per_example > 1 else "images"
+    if profile.get("wall_us"):
+        profile[f"{unit}_per_sec"] = (config.global_batch_size * per_example
+                                      / profile["wall_us"] * 1e6)
+    log(f"# {label}: peak memory {profile['peak_memory_gb']:.2f} GB, "
+        f"{profile.get(f'{unit}_per_sec')} {unit}/s")
+    del state, batch
+    torch.cuda.empty_cache()
+    return profile
+
+
+def run_path(label: str, kernels, argv, failures, *, steps: int,
+             per_step: int, first: float, first_tol: float,
+             rate: str = "examples_per_sec") -> dict:
+    """One training CLI run with the port's counts set to 0 just before it
+    and read just after: ``steps`` losses, each flash kernel launched
+    ``per_step`` x ``steps`` times and no other kernel of the port, every
+    loss finite and the first within ``first_tol`` of ``first``, and the
+    summary's ``rate``. Returns the record."""
     import torch
 
     from distributeddeeplearning_tpu_torch.ops import flash_attention as fa
 
+    torch.cuda.empty_cache()
     reset_counts(kernels)
+    err = io.StringIO()
     t0 = time.perf_counter()
-    lines = run_train_cli(TRAIN_ARGV)
+    with contextlib.redirect_stderr(err):
+        lines = run_train_cli(argv)
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
     launches = read_counts(kernels)
-    expected = {k["name"]: 12 * TRAIN_STEPS if k["module"] is fa else 0
-                for k in kernels}
-    metrics = [x for x in lines if "step" in x]
-    summary = lines[-1].get("summary", {})
+    metrics, _, summary = split_lines(lines)
     losses = [x["loss"] for x in metrics]
-    log(f"# gpt2_small train: CLI {cli_s:.2f} s, launches {launches}, "
-        f"expected {expected}, losses {losses}, summary "
-        f"{json.dumps(summary)}")
+    expected = {k["name"]: per_step * steps if k["module"] is fa else 0
+                for k in kernels}
+    record = {"cli_s": cli_s, "launches": launches, "losses": losses,
+              "log": [x for x in err.getvalue().splitlines()
+                      if "loader=" in x],
+              "summary": summary}
     if launches != expected:
-        failures.append(f"training path launches {launches}, expected "
+        failures.append(f"{label}: launches {launches}, expected "
                         f"{expected}")
-    if (len(losses) != TRAIN_STEPS
-            or not all(np.isfinite(x) for x in losses)
-            or abs(losses[0] - np.log(VOCAB)) > FIRST_LOSS_TOL):
-        failures.append(f"training losses {losses}: need {TRAIN_STEPS} "
-                        f"finite, the first within {FIRST_LOSS_TOL} of "
-                        f"ln {VOCAB}")
-    if not summary.get("tokens_per_sec"):
-        failures.append(f"training summary without tokens/s: {summary}")
-    return {"launches": launches, "summary": summary,
-            "profile": gpt2_step_profile()}
+    if (len(losses) != steps or not all(np.isfinite(x) for x in losses)
+            or abs(losses[0] - first) > first_tol):
+        failures.append(f"{label}: losses {losses}; need {steps} finite, "
+                        f"the first within {first_tol} of {first:.4f}")
+    if not summary.get(rate):
+        failures.append(f"{label}: summary without {rate}: {summary}")
+    log(f"# {label}: " + json.dumps(record))
+    return record
+
+
+def phase_train(kernels, failures) -> dict:
+    """The training path: GPT-2 small at full width through the CLI
+    (``run_path``), then a device-time profile of one step of the same
+    configuration."""
+    record = run_path("gpt2_small train", kernels, TRAIN_ARGV, failures,
+                      steps=TRAIN_STEPS, per_step=12,
+                      first=float(np.log(VOCAB)), first_tol=FIRST_LOSS_TOL,
+                      rate="tokens_per_sec")
+    record["profile"] = gpt2_step_profile()
+    return record
 
 
 def gpt2_step_profile() -> dict:
     """A device-time profile of one step of the training path's
-    configuration (``step_profile``), with the tokens/s of its unprofiled
-    wall time and the peak device memory."""
-    import torch
-
-    from distributeddeeplearning_tpu_torch.data.synthetic import (
-        SyntheticCausalTokens)
-    from distributeddeeplearning_tpu_torch.train import cli as train_cli
-    from distributeddeeplearning_tpu_torch.train import loop, steps
-
-    config = train_cli.build_config(train_cli.parse_args(TRAIN_ARGV))
-    state, sched = loop.build_state(config, torch.device("cuda"))
-    train_step = steps.make_train_step(config, sched)
-    source = SyntheticCausalTokens(TRAIN_BATCH, TRAIN_SEQ, VOCAB, SEED,
-                                   "cuda")
-    batch = source.batch(0)
-    torch.cuda.reset_peak_memory_stats()
-    profile = step_profile("gpt2_small train step (bf16, flash, dropout "
-                           "0.1)", lambda: train_step(state, batch),
-                           grad=True)
-    profile["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    if profile.get("wall_us"):
-        profile["tokens_per_sec"] = (TRAIN_BATCH * TRAIN_SEQ
-                                     / profile["wall_us"] * 1e6)
-    log(f"# gpt2_small train step peak memory "
-        f"{profile['peak_memory_gb']:.2f} GB, "
-        f"{profile.get('tokens_per_sec')} tokens/s")
-    del state
-    torch.cuda.empty_cache()
-    return profile
+    configuration, with its tokens/s and peak device memory
+    (``model_step_profile``)."""
+    return model_step_profile("gpt2_small train step (bf16, flash, "
+                              "dropout 0.1)", TRAIN_ARGV, TRAIN_SEQ)
 
 
 # Shapes of step_ab's flash kernel times: GPT-2's training shape, and
@@ -1374,7 +1423,8 @@ def phase_flash_vs_dense_step(failures) -> None:
     """One f32 training step of GPT-2 small at batch 4 x 1024 through
     flash and through dense: same weights, batch and dropout seeds (the
     hash mask drops the same attention probabilities; the residual sites
-    draw the same device generators). Loss and every gradient compared."""
+    draw the same device generators). Loss and every gradient compared
+    (``flash_vs_dense_step``)."""
     import torch
 
     from distributeddeeplearning_tpu_torch.models import get_model
@@ -1384,40 +1434,55 @@ def phase_flash_vs_dense_step(failures) -> None:
 
     ids = torch.as_tensor(np.random.default_rng(SEED + 5).integers(
         1, VOCAB, (DENSE_BATCH, TRAIN_SEQ)), device="cuda")
+    flash_vs_dense_step(
+        f"gpt2_small (batch {DENSE_BATCH} x {TRAIN_SEQ}, dropout 0.1)",
+        lambda impl: get_model("gpt2_small", dtype=torch.float32,
+                               attention_impl=impl).train(),
+        lambda m: causal_lm_loss(m(ids, rng=dropout_rng(SEED, 0)), ids),
+        failures, SEED + 6)
+
+
+def flash_vs_dense_step(label, build, forward, failures, seed) -> dict:
+    """One f32 training step of the model ``build(impl)`` gives, its
+    weights drawn after ``torch.manual_seed(seed)``, through flash and
+    through dense from the same weights, on ``forward(model)``'s loss: the
+    loss within STEP_LOSS_TOL and each gradient within STEP_GRAD_TOL of
+    max(its largest |ref|, 1e-4 of the largest of all; a gradient zero in
+    exact arithmetic, such as the key bias's, holds only rounding)."""
+    import torch
+
     grads, losses = {}, {}
     state = None
-    torch.manual_seed(SEED + 6)  # the weights, from a seed
+    torch.manual_seed(seed)
     for impl in ("flash", "dense"):
-        model = get_model("gpt2_small", dtype=torch.float32,
-                          attention_impl=impl).train()
+        model = build(impl)
         if state is None:
             state = model.state_dict()
         else:
             model.load_state_dict(state)
-        logits = model(ids, rng=dropout_rng(SEED, 0))
-        loss = causal_lm_loss(logits, ids)
-        del logits
+        loss = forward(model)
         loss.backward()
         losses[impl] = loss.item()
         grads[impl] = {n: p.grad for n, p in model.named_parameters()}
-        del model
+        del model, loss
     top = max(g.abs().max().item() for g in grads["dense"].values())
-    worst = 0.0
+    worst, worst_name = 0.0, None
     for name, ref in grads["dense"].items():
         scale = max(ref.abs().max().item(), 1e-4 * top)
-        worst = max(worst, (grads["flash"][name] - ref).abs().max().item()
-                    / scale)
+        err = (grads["flash"][name] - ref).abs().max().item() / scale
+        if err >= worst:
+            worst, worst_name = err, name
     loss_err = abs(losses["flash"] - losses["dense"])
-    log(f"# gpt2_small f32 train step, flash vs dense (batch "
-        f"{DENSE_BATCH} x {TRAIN_SEQ}, dropout 0.1): losses "
-        f"{json.dumps(losses)}, loss err {loss_err:.3e}, worst gradient err "
-        f"{worst:.3e} of its scale")
+    record = {"losses": losses, "loss_err": loss_err, "worst_grad_err": worst,
+              "worst_grad": worst_name}
+    log(f"# {label} f32 train step, flash vs dense: " + json.dumps(record))
     if not np.isfinite(loss_err) or loss_err > STEP_LOSS_TOL \
             or not worst <= STEP_GRAD_TOL:
-        failures.append(f"flash vs dense training step: loss err "
-                        f"{loss_err}, gradient err {worst}")
+        failures.append(f"{label} flash vs dense step: loss err {loss_err}, "
+                        f"gradient err {worst} ({worst_name})")
     del grads
     torch.cuda.empty_cache()
+    return record
 
 
 def resnet50_bn_layers() -> list[tuple]:
@@ -2737,7 +2802,6 @@ def phase_token_shards(kernels, failures, scratch: Path,
     import torch
 
     from distributeddeeplearning_tpu_torch.data import imagenet, tokens
-    from distributeddeeplearning_tpu_torch.ops import flash_attention as fa
     from distributeddeeplearning_tpu_torch.train import cli as train_cli
     from distributeddeeplearning_tpu_torch.train import loop
 
@@ -2749,42 +2813,21 @@ def phase_token_shards(kernels, failures, scratch: Path,
                 rng.integers(1, VOCAB, (SHARD_ROWS, TRAIN_SEQ)).astype(dtype))
     argv = [a for a in TRAIN_ARGV if a != "--synthetic"] + [
         "--data-dir", str(shards)]
-    torch.cuda.empty_cache()
-    reset_counts(kernels)
-    err = io.StringIO()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stderr(err):
-        lines = run_train_cli(argv)
-    torch.cuda.synchronize()
-    cli_s = time.perf_counter() - t0
-    launches = read_counts(kernels)
-    expected = {k["name"]: 12 * TRAIN_STEPS if k["module"] is fa else 0
-                for k in kernels}
-    metrics, _, summary = split_lines(lines)
-    losses = [x["loss"] for x in metrics]
+    run = run_path("gpt2_small on token shards", kernels, argv, failures,
+                   steps=TRAIN_STEPS, per_step=12,
+                   first=float(np.log(VOCAB)), first_tol=FIRST_LOSS_TOL,
+                   rate="tokens_per_sec")
+    summary = run["summary"]
     pipeline = summary.get("input_pipeline", {})
-    header = [x for x in err.getvalue().splitlines() if "loader=" in x]
-    record = {"cli_s": cli_s, "launches": launches, "losses": losses,
-              "log": header, "input_pipeline": pipeline,
+    record = {"input_pipeline": pipeline,
               "tokens_per_sec": summary.get("tokens_per_sec"),
               "synthetic_tokens_per_sec":
                   synthetic["summary"].get("tokens_per_sec"),
               "peak_memory_gb": summary.get("peak_memory_gb")}
-    if launches != expected:
-        failures.append(f"token-shard launches {launches}, expected "
-                        f"{expected}")
     if (pipeline.get("loader") != "tokens"
-            or not any("loader=tokens" in x for x in header)):
+            or not any("loader=tokens" in x for x in run["log"])):
         failures.append(f"token-shard run did not resolve loader=tokens: "
-                        f"{header}, {pipeline}")
-    if (len(losses) != TRAIN_STEPS
-            or not all(np.isfinite(x) for x in losses)
-            or abs(losses[0] - np.log(VOCAB)) > FIRST_LOSS_TOL):
-        failures.append(f"token-shard losses {losses}: need {TRAIN_STEPS} "
-                        f"finite, the first within {FIRST_LOSS_TOL} of "
-                        f"ln {VOCAB}")
-    if not summary.get("tokens_per_sec"):
-        failures.append(f"token-shard summary without tokens/s: {summary}")
+                        f"{run['log']}, {pipeline}")
 
     # The card's token batches against the host stream's, bit for bit.
     config = train_cli.build_config(train_cli.parse_args(argv))
@@ -2848,6 +2891,171 @@ def phase_token_shards(kernels, failures, scratch: Path,
                         "the host batch cast to bf16")
     log("# gpt2_small on token shards: " + json.dumps(record))
     return record
+
+
+# BERT-base masked-LM path (phase 25): the bert_base_mlm preset on one card
+# at its 256 x 128, bf16 over f32 masters, AdamW, dropout 0.1.
+BERT_BATCH, BERT_SEQ, BERT_STEPS, BERT_VOCAB, BERT_LAYERS = (256, 128, 6,
+                                                             30522, 12)
+BERT_ARGV = ["--config", "bert_base_mlm", "--dp", "1", "--attn", "flash",
+             "--steps", str(BERT_STEPS), "--log-every", "1",
+             "--seed", str(SEED)]
+# BERT's token shards: two files of this many rows of ids above the
+# reserved range, three rows in four ending in a PAD tail of 1 to
+# BERT_SEQ - 32 ids.
+BERT_SHARD_ROWS = 1024
+# ViT-B/16 path (phase 26): 224 px, 16 px patches (S = 197), 1000 classes.
+VIT_BATCH, VIT_STEPS, VIT_LAYERS = 256, 6, 12
+VIT_ARGV = ["--model", "vit_b16", "--batch-size", str(VIT_BATCH),
+            "--synthetic", "--attn", "flash", "--steps", str(VIT_STEPS),
+            "--log-every", "1", "--seed", str(SEED)]
+# Phase 27: one f32 step at full width through flash and through dense,
+# held as phase 9 (STEP_LOSS_TOL, STEP_GRAD_TOL).
+MODEL_STEP_BATCH = 8
+
+
+def phase_bert_train(kernels, failures, scratch: Path) -> dict:
+    """Phase 25, BERT-base masked-LM on the card: the ``bert_base_mlm``
+    preset with ``--dp 1 --attn flash`` on synthetic batches (the dense
+    head over 256 x 128 x 30522 logits), then on token shards written here
+    whose PAD tails make the key-padding mask live, with the gather head
+    (``--mlm-max-predictions -1``: 19 positions a row); each, #1-#3 12
+    launches a step and no other kernel, losses finite and the first
+    within 0.5 of ln 30522. Then a device-time profile of one synthetic
+    step."""
+    shards = scratch / "bert_shards"
+    shards.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(SEED + 25)
+    pads = 0
+    for k in range(2):
+        ids = rng.integers(1000, BERT_VOCAB, (BERT_SHARD_ROWS, BERT_SEQ),
+                           dtype=np.int32)
+        tails = rng.integers(1, BERT_SEQ - 31, BERT_SHARD_ROWS)
+        tails[rng.random(BERT_SHARD_ROWS) < 0.25] = 0
+        for row, n in enumerate(tails):
+            ids[row, BERT_SEQ - n:] = 0       # PAD
+        pads += int(tails.sum())
+        np.save(shards / f"train-{k:05d}.npy", ids)
+    first = float(np.log(BERT_VOCAB))
+    synthetic = run_path("bert_base_mlm synthetic (dense head)", kernels,
+                         BERT_ARGV + ["--synthetic"], failures,
+                         steps=BERT_STEPS, per_step=BERT_LAYERS, first=first,
+                         first_tol=FIRST_LOSS_TOL, rate="tokens_per_sec")
+    real = run_path("bert_base_mlm token shards (gather head)", kernels,
+                    BERT_ARGV + ["--data-dir", str(shards),
+                                 "--mlm-max-predictions", "-1"], failures,
+                    steps=BERT_STEPS, per_step=BERT_LAYERS, first=first,
+                    first_tol=FIRST_LOSS_TOL, rate="tokens_per_sec")
+    real["pad_share"] = pads / (2 * BERT_SHARD_ROWS * BERT_SEQ)
+    if real["summary"].get("input_pipeline", {}).get("loader") != "tokens":
+        failures.append(f"bert token-shard run did not read the shards: "
+                        f"{real['summary']}")
+    profile = model_step_profile(
+        "bert_base_mlm train step (bf16, flash, dropout 0.1, dense head)",
+        BERT_ARGV + ["--synthetic"], BERT_SEQ)
+    log("# bert_base_mlm: " + json.dumps({
+        "tokens_per_sec": {"synthetic": synthetic["summary"].get(
+            "tokens_per_sec"), "shards": real["summary"].get(
+                "tokens_per_sec")},
+        "peak_memory_gb": {"synthetic": synthetic["summary"].get(
+            "peak_memory_gb"), "shards": real["summary"].get(
+                "peak_memory_gb")},
+        "pad_share": real["pad_share"]}))
+    return {"synthetic": synthetic, "shards": real, "profile": profile}
+
+
+def phase_vit_train(kernels, failures) -> dict:
+    """Phase 26, ViT-B/16 on the card: ``--model vit_b16 --batch-size 256
+    --synthetic --attn flash`` (224 px, S = 197, 1000 classes, bf16) for 6
+    steps; #1-#3 12 launches a step and no other kernel, losses finite
+    and the first within 0.3 of ln 1000 (the zero classifier gives uniform
+    logits). Then a device-time profile of one step."""
+    record = run_path("vit_b16 train", kernels, VIT_ARGV, failures,
+                      steps=VIT_STEPS, per_step=VIT_LAYERS,
+                      first=float(np.log(1000)),
+                      first_tol=RESNET_FIRST_LOSS_TOL)
+    record["profile"] = model_step_profile(
+        "vit_b16 train step (bf16, flash)", VIT_ARGV, 1)
+    return record
+
+
+def phase_model_steps(failures) -> None:
+    """Phase 27: one f32 step at full width, flash against dense. BERT-base
+    at batch 8 x 128 with padded keys (rows of 128 down to 40 tokens),
+    targets at 15% of the real tokens, dropout 0.1 at every site (the hash
+    mask drops the same attention probabilities; the residual sites draw
+    the same device generators); ViT-B/16 at batch 8 with its classifier
+    drawn N(0, 0.02) (the zero one would leave every other gradient 0)."""
+    import torch
+
+    from distributeddeeplearning_tpu_torch.models import get_model
+    from distributeddeeplearning_tpu_torch.train.losses import (
+        mlm_loss, smoothed_softmax_ce)
+    from distributeddeeplearning_tpu_torch.train.steps import dropout_rng
+
+    rng = np.random.default_rng(SEED + 27)
+    b = MODEL_STEP_BATCH
+    ids = rng.integers(1000, BERT_VOCAB, (b, BERT_SEQ))
+    lengths = np.linspace(BERT_SEQ, 40, b).astype(int)
+    mask = np.arange(BERT_SEQ)[None, :] < lengths[:, None]
+    labels = np.where(mask & (rng.random((b, BERT_SEQ)) < 0.15), ids, -1)
+    ids, mask, labels = (torch.as_tensor(x, device="cuda")
+                         for x in (ids, mask.astype(np.int32), labels))
+
+    def bert(impl):
+        return get_model("bert_base", dtype=torch.float32,
+                         attention_impl=impl).train()
+
+    flash_vs_dense_step(
+        f"bert_base (batch {b} x {BERT_SEQ}, padded keys, dropout 0.1)",
+        bert, lambda m: mlm_loss(m(ids, attention_mask=mask,
+                                   rng=dropout_rng(SEED, 0)), labels),
+        failures, SEED + 27)
+    images = torch.as_tensor(rng.standard_normal(
+        (b, RESNET_IMAGE, RESNET_IMAGE, 3), dtype=np.float32), device="cuda")
+    classes = torch.as_tensor(rng.integers(0, 1000, b), device="cuda")
+
+    def vit(impl):
+        model = get_model("vit_b16", dtype=torch.float32,
+                          attention_impl=impl).train()
+        torch.nn.init.normal_(model.classifier.weight, std=0.02)
+        return model
+
+    flash_vs_dense_step(
+        f"vit_b16 (batch {b}, S = 197)", vit,
+        lambda m: smoothed_softmax_ce(m(images), classes), failures,
+        SEED + 28)
+
+
+def phase_model_rows(fa, failures) -> dict:
+    """The flash kernels at BERT-base's training shape (B=256, S=128, 12
+    heads of 64, bf16, full, key padding with rows of 32 to 128 keys, a
+    quarter full; dropout 0.1, each kernel timed at rate 0 too, beside the
+    library yardstick there) and ViT-B/16's (B=256, S=197, full, every key
+    live, rate 0), each against its plain version."""
+    import torch
+
+    rng = np.random.default_rng(SEED + 29)
+    lengths = rng.integers(32, BERT_SEQ + 1, BERT_BATCH)
+    lengths[rng.random(BERT_BATCH) < 0.25] = BERT_SEQ
+    bert_args = (fa, BERT_SEQ, BERT_BATCH, 12, 64, "bfloat16", False,
+                 [int(n) for n in lengths])
+    rows = {"bert": {r["kernel"]: r for r in bwd_case(
+        *bert_args, 0.1, SEED + 31, library=True)}}
+    for r in bwd_case(*bert_args, 0.0, SEED + 31, library=False, fwd=True):
+        rows["bert"][r["kernel"]]["ms_rate0"] = r["ms"]
+    torch.cuda.empty_cache()
+    rows["vit"] = {r["kernel"]: r for r in bwd_case(
+        fa, 197, VIT_BATCH, 12, 64, "bfloat16", False, [197] * VIT_BATCH,
+        0.0, SEED + 33, library=True, fwd=True)}
+    for shape, by_kernel in rows.items():
+        for r in by_kernel.values():
+            log(f"# {shape}_shape " + json.dumps(r))
+            if not r["ok"]:
+                failures.append(f"{r['kernel']} at {shape}'s shape "
+                                f"disagrees with its plain version: {r}")
+    torch.cuda.empty_cache()
+    return rows
 
 
 def main() -> int:
@@ -2979,6 +3187,11 @@ def main() -> int:
         timed("resnet50_lars_32k", phase_lars_32k, kernels, failures)
         timed("token_shards", phase_token_shards, kernels, failures,
               scratch, train)
+        model_rows = timed("bert_vit_rows", phase_model_rows, fa, failures)
+        bert = timed("bert_base_mlm_train", phase_bert_train, kernels,
+                     failures, scratch)
+        vit = timed("vit_b16_train", phase_vit_train, kernels, failures)
+        timed("bert_vit_flash_vs_dense_step", phase_model_steps, failures)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     log(f"# total: {time.perf_counter() - t_start:.2f} s")
@@ -2987,7 +3200,8 @@ def main() -> int:
             print(f"chip_smoke: FAILED: {f}", file=sys.stderr)
         return 1
 
-    # Flash rows: the GPT-2 training shape, launches from its training run.
+    # Flash rows: the GPT-2 training shape, launches from its training run,
+    # with BERT-base's and ViT-B/16's shapes and runs beside them.
     # BatchNorm rows: the stem's shape (6,422,528 x 64, bf16, relu),
     # launches from the ResNet-50 --fused-bn run, and ``step_ms``: the
     # kernel's time summed over one step's 53 layers. Matmul rows: stage 1's
@@ -3006,6 +3220,19 @@ def main() -> int:
             extra = {key: row[key] for key in ("library_rate", "ms_rate0",
                                                "library_call_ms")
                      if key in row}
+            # This slice's paths and shapes beside the GPT-2 training
+            # path's.
+            extra["launches_by_path"] = {
+                "gpt2_train": launches[k["name"]],
+                "bert_mlm_synthetic": bert["synthetic"]["launches"][
+                    k["name"]],
+                "bert_mlm_shards": bert["shards"]["launches"][k["name"]],
+                "vit_b16": vit["launches"][k["name"]]}
+            for shape, by_kernel in model_rows.items():
+                extra[f"{shape}_shape"] = {
+                    key: by_kernel[k["name"]].get(key) for key in (
+                        "max_abs_err", "ms", "ms_rate0", "plain_ms",
+                        "bound_ms", "bound_by", "library_ms")}
         elif k["module"] is bn:
             row, launches = stem[k["name"]], resnet["launches"]
             extra = {"step_ms": bn_grid["step"][k["name"]]["ms"]}

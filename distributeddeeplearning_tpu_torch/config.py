@@ -1,20 +1,23 @@
 """Run configuration of the port: the subset of the JAX package's
 ``TrainConfig``/``DataConfig``/``OptimizerConfig``/``ParallelConfig``/
 ``PrecisionPolicy``/``AllReduceConfig`` (``distributeddeeplearning_tpu/
-config.py``) that training of the causal LMs, the ResNets and the DenseNets
-on one card, and of the image models data-parallel, reads, with the same
-field names and defaults, and the acceptance presets (``preset``).
+config.py``) that training of the causal LMs, BERT, the ResNets, the
+DenseNets and ViT on one card, and of the image models data-parallel,
+reads, with the same field names and defaults, the acceptance presets
+(``preset``) and ``resolve_mlm_max_predictions``.
 
 One default differs: ``TrainConfig.model`` is ``gpt2_small`` (the JAX
 default is a ResNet); every preset names its model. The token data is
 synthetic ids over the model's own vocabulary (GPT-2's 50257, Llama's
-32000) or token shards, the image data synthetic NHWC images of
-``image_size`` with ``num_classes`` labels or an image folder
-(``DataConfig.data_dir``). ``dataset`` names the corpus whose size fixes an
-epoch, as in the JAX package: ``imagenet`` (1,281,167 training images, or
-the images of an image-folder ``data_dir``), so every run, token models
-included, has an epoch length, and the warmup is ``warmup_epochs`` of them
-(capped at the run's length less one step), as the JAX schedule gives it.
+32000; BERT's is ``DataConfig.vocab_size``, as the JAX loop builds it) or
+token shards, the image data synthetic NHWC images of ``image_size`` with
+``num_classes`` labels or an image folder (``DataConfig.data_dir``).
+``dataset`` names the corpus whose size fixes an epoch, as in the JAX
+package: ``imagenet`` (1,281,167 training images, or the images of an
+image-folder ``data_dir``), so such a run, token models included, has an
+epoch length and the warmup is ``warmup_epochs`` of them (capped at the
+run's length less one step), as the JAX schedule gives it; ``mlm`` (BERT's
+presets) has none, and the warmup is 5% of the steps.
 """
 
 from __future__ import annotations
@@ -175,8 +178,8 @@ class OptimizerConfig:
 class DataConfig:
     """Input pipeline settings (``data/__init__.py`` routes them)."""
 
-    dataset: str = "imagenet"     # fixes the epoch length; the only one
-                                  # the port knows
+    dataset: str = "imagenet"     # fixes the epoch length: imagenet, or
+                                  # mlm (no epoch)
     data_dir: Optional[str] = None  # an image folder (<split>/<wnid>/
                                   # *.JPEG) or token shards (<split>-*.npy)
     synthetic: bool = True        # made on the device; a data_dir is read
@@ -271,6 +274,18 @@ class TrainConfig:
 
     def replace(self, **kw: Any) -> "TrainConfig":
         return dataclasses.replace(self, **kw)
+
+
+def resolve_mlm_max_predictions(value: int, seq_len: int,
+                                objective: str = "mlm") -> int:
+    """The gather head's width, as the JAX package's function of the same
+    name resolves it: -1 is the canonical ``round(0.15 * seq_len)`` for the
+    mlm objective and 0 (the dense head) for any other; an explicit value
+    is clamped to ``seq_len`` (at most that many positions can be masked),
+    and 0 for a model that is not masked-LM."""
+    if value >= 0:
+        return min(value, seq_len) if objective == "mlm" else 0
+    return int(round(0.15 * seq_len)) if objective == "mlm" else 0
 
 
 def preset(name: str) -> TrainConfig:

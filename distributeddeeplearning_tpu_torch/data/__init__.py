@@ -108,9 +108,10 @@ def make_source(config, input_kind: str, device, *, dp=None,
     None for one card):
 
     - synthetic (or no data_dir): batches made on the device from (seed,
-      step), the rank's rows of each global batch;
+      step), the rank's rows of each global batch: images, or token ids
+      by ``objective`` (causal ids, or masked-LM batches);
     - tokens + data_dir: the token shards, the rank's rows from
-      ``start_step``;
+      ``start_step``, masked on the host when ``objective`` is ``mlm``;
     - an image folder: the native loader, the rank's files from
       ``start_step``, images cast to the compute dtype on the device.
 
@@ -123,6 +124,7 @@ def make_source(config, input_kind: str, device, *, dp=None,
     rank, world = (0, 1) if dp is None else (dp.rank, dp.world)
     if loader == "synthetic":
         source = synthetic.make_source(config, input_kind, device,
+                                       objective=objective,
                                        vocab_size=vocab_size)
         return source if dp is None else RankRows(source, dp)
     if loader == "tokens":

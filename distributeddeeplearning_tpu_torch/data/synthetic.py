@@ -1,8 +1,12 @@
-"""Synthetic training batches: counterparts of ``SyntheticCausalTokens``
-and ``SyntheticImages`` in ``distributeddeeplearning_tpu/data/synthetic.py``.
+"""Synthetic training batches: counterparts of ``SyntheticCausalTokens``,
+``SyntheticTokens`` and ``SyntheticImages`` in
+``distributeddeeplearning_tpu/data/synthetic.py``.
 
-Token ids are uniform in [1, vocab) with an all-ones attention mask; images
-are NHWC bfloat16 standard normals with labels uniform in [0, classes).
+Causal-LM ids are uniform in [1, vocab) with an all-ones attention mask;
+masked-LM ids are uniform above the reserved range, with [MASK] written
+at a random 15% of the positions (dense) or at exactly ``max_predictions``
+positions a row (gathered); images are NHWC bfloat16 standard normals with
+labels uniform in [0, classes).
 Both are drawn on the device from a ``torch.Generator`` seeded by (seed,
 step), so a batch depends only on its step and a resumed run sees the
 batches an unbroken one would. The bits are not JAX's PRNG bits.
@@ -43,6 +47,56 @@ class SyntheticCausalTokens:
                             device=self.device)
         return {"input_ids": ids,
                 "attention_mask": torch.ones_like(ids, dtype=torch.int32)}
+
+
+MASK_TOKEN_ID = 103  # [MASK] in the BERT-base uncased vocabulary
+
+
+class SyntheticTokens:
+    """Masked-LM batches: ``input_ids`` (B, S) with [MASK] written in at
+    the targets and an all-ones ``attention_mask``; dense, ``labels`` (B, S)
+    are the original ids at the targets (each position one with
+    probability ``mask_prob``) and -1 elsewhere; with ``max_predictions`` >
+    0, gathered: ``masked_positions`` (B, P), P = ``max_predictions``
+    distinct sorted positions a row, and ``masked_labels`` (B, P) the ids
+    there, for the gather head."""
+
+    def __init__(self, batch_size: int, seq_len: int = 128,
+                 vocab_size: int = 30522, mask_prob: float = 0.15,
+                 seed: int = 0, device=None, max_predictions: int = 0):
+        self.batch_size = batch_size
+        self.seq_len = seq_len
+        self.vocab_size = vocab_size
+        self.mask_prob = mask_prob
+        self.seed = seed
+        self.device = torch.device("cpu" if device is None else device)
+        self.max_predictions = max_predictions
+
+    def batch(self, step: int) -> dict:
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(step_seed(self.seed, step))
+        shape = (self.batch_size, self.seq_len)
+        # Above the reserved ids, but inside small test vocabularies.
+        lo = min(1000, self.vocab_size // 2)
+        ids = torch.randint(lo, self.vocab_size, shape, generator=gen,
+                            device=self.device)
+        mask = torch.ones(shape, dtype=torch.int32, device=self.device)
+        if self.max_predictions > 0:
+            order = torch.rand(shape, generator=gen,
+                               device=self.device).argsort(dim=1)
+            pos = order[:, :self.max_predictions].sort(dim=1).values
+            rows = torch.arange(self.batch_size, device=self.device)[:, None]
+            labels = ids[rows, pos]
+            input_ids = ids.clone()
+            input_ids[rows, pos] = MASK_TOKEN_ID
+            return {"input_ids": input_ids, "attention_mask": mask,
+                    "masked_positions": pos.to(torch.int32),
+                    "masked_labels": labels.to(torch.int32)}
+        masked = torch.rand(shape, generator=gen,
+                            device=self.device) < self.mask_prob
+        return {"input_ids": torch.where(masked, MASK_TOKEN_ID, ids),
+                "labels": torch.where(masked, ids, -1).to(torch.int32),
+                "attention_mask": mask}
 
 
 # The generator stream of the class patterns (JAX folds this into its key).
@@ -96,13 +150,20 @@ class SyntheticImages:
 
 
 def make_source(config, input_kind: str = "image", device=None, *,
+                objective: str = "classify",
                 vocab_size: Optional[int] = None):
-    """The synthetic source of the model's input kind: causal-LM ids over
-    ``vocab_size`` (the model's), or images of ``config.data``."""
+    """The synthetic source of the model's input kind and objective:
+    causal-LM ids or masked-LM batches over ``vocab_size`` (the model's),
+    or images of ``config.data``."""
     d = config.data
-    if input_kind == "tokens":
+    if input_kind == "tokens" and objective == "causal":
         return SyntheticCausalTokens(config.global_batch_size, d.seq_len,
                                      vocab_size, config.seed, device)
+    if input_kind == "tokens":
+        return SyntheticTokens(config.global_batch_size, d.seq_len,
+                               vocab_size, d.mlm_mask_prob, config.seed,
+                               device,
+                               max_predictions=d.mlm_max_predictions)
     return SyntheticImages(config.global_batch_size, d.image_size,
                            d.num_classes, config.seed, device,
                            learnable=d.synthetic_learnable)

@@ -1,9 +1,12 @@
-"""The one attention-impl dispatch shared by the transformer families
-(models/gpt.py, models/llama.py).
+"""The one attention-impl dispatch shared by the transformer families:
+causal for GPT and Llama (models/gpt.py, models/llama.py), non-causal for
+BERT under its key-padding mask and for ViT over its 197 tokens, which no
+tile divides (models/bert.py, models/vit.py).
 
 Counterpart of ``distributeddeeplearning_tpu/ops/attention.py``:
 dropout(softmax(QK^T * d^-1/2 + mask)) V with a key-padding mask, optionally
-causal.
+causal. The flash kernels mask a ragged S inside their last tile, where the
+JAX package pads S to a multiple of 128 before its kernel.
 
 - ``dense``: materialized (S, S) scores, f32 softmax.
 - ``flash``: the CUDA flash kernels (ops/flash_attention.py), forward and

@@ -1,6 +1,6 @@
-"""Training CLI of the PyTorch port: causal-LM, ResNet and DenseNet
-training on one card, and the image models data-parallel over the ranks of
-a ``torchrun`` launch.
+"""Training CLI of the PyTorch port: causal-LM, BERT masked-LM, ResNet,
+DenseNet and ViT training on one card, and the image models data-parallel
+over the ranks of a ``torchrun`` launch.
 
     python -m distributeddeeplearning_tpu_torch.train --model gpt2_small \
         --batch-size 16 --seq-len 1024 --attn flash --synthetic --steps 100
@@ -29,6 +29,13 @@ a ``torchrun`` launch.
     python -m distributeddeeplearning_tpu_torch.train --model gpt2_small \
         --batch-size 16 --seq-len 1024 --attn flash --data-dir SHARDS \
         --steps 1000
+    python -m distributeddeeplearning_tpu_torch.train --config \
+        bert_base_mlm --dp 1 --attn flash --synthetic --steps 100
+    python -m distributeddeeplearning_tpu_torch.train --config \
+        bert_base_mlm --dp 1 --attn flash --data-dir SHARDS \
+        --mlm-max-predictions -1 --steps 1000
+    python -m distributeddeeplearning_tpu_torch.train --model vit_b16 \
+        --batch-size 256 --synthetic --attn flash --steps 100
 
 The counterpart of the root ``train.py`` for these models, with its flags
 where they apply: a preset by name (``--config``, ``--list-configs``)
@@ -39,16 +46,19 @@ data parallelism (``--dp N`` under ``torchrun --nproc-per-node N``: NCCL
 on the card, gloo with ``--device cpu``; the bucketed gradient all-reduce,
 ``--allreduce-*``; ``--sync-bn``), gradient accumulation (``--accum``) and
 a profile of a few steps (``--profile-steps``). Data is synthetic token ids
-or images made on the device (``--synthetic``, the default), or read from
-``--data-dir``: an image folder (``train/<wnid>/*.JPEG``, ``val/`` for
-eval) through the C++ loader, or token shards (``train-*.npy``,
-``validation-*.npy``), each rank reading its own rows; weights start
-random from ``--seed``. Rank 0 prints one JSON metric line per log step and
-a final ``{"summary": ...}`` line. Runs on the GPU unless ``--device cpu``
-is given. Without ``--steps`` an image run lasts ``--epochs`` epochs of
-ImageNet, or of the image folder. Flags and presets of later slices (a
-mesh axis other than data above 1, ZeRO, TFRecords, grain, BERT) raise
-instead of being ignored.
+(masked-LM batches for BERT) or images made on the device
+(``--synthetic``, the default), or read from ``--data-dir``: an image
+folder (``train/<wnid>/*.JPEG``, ``val/`` for eval) through the C++
+loader, or token shards (``train-*.npy``, ``validation-*.npy``; masked on
+the host for BERT, whose gather head ``--mlm-max-predictions`` sets), each
+rank reading its own rows; weights start random from ``--seed``. Rank 0
+prints one JSON metric line per log step and a final ``{"summary": ...}``
+line. Runs on the GPU unless ``--device cpu`` is given. Without
+``--steps`` an image run lasts ``--epochs`` epochs of ImageNet, or of the
+image folder. Flags, models and presets of later slices (a mesh axis other
+than data above 1, ``--dp`` above 1 for a token model, ring attention,
+MoE and pipelined models, ZeRO, TFRecords, grain) raise instead of being
+ignored.
 """
 
 from __future__ import annotations
@@ -96,6 +106,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--image-size", type=int, default=None,
                    help="side of the synthetic images, or the decode and "
                         "crop target of an image folder's (default 224)")
+    p.add_argument("--mlm-max-predictions", type=int, default=None,
+                   help="BERT's gather head: project only this many masked "
+                        "positions to the vocabulary; -1 = auto "
+                        "(round(0.15 * seq_len)); 0 or unset = dense logits "
+                        "over the whole sequence")
     p.add_argument("--num-classes", type=int, default=None,
                    help="classes of an image model (default 1000)")
     p.add_argument("--fused-bn", action="store_true",
@@ -252,8 +267,12 @@ def build_config(args: argparse.Namespace) -> cfglib.TrainConfig:
     except KeyError as e:
         raise SystemExit(f"--config: {e.args[0]}") from None
     model = args.model or cfg.model
+    try:
+        spec = model_spec(model)
+    except KeyError as e:
+        raise SystemExit(f"--model: {e.args[0]}") from None
     for flag in ("fused_bn", "fused_block"):
-        if getattr(args, flag) and model_spec(model).input_kind != "image":
+        if getattr(args, flag) and spec.input_kind != "image":
             raise SystemExit(f"--{flag.replace('_', '-')}: {model} has "
                              f"no BatchNorm; the fused kernels serve the "
                              f"image models (ResNet)")
@@ -288,6 +307,10 @@ def build_config(args: argparse.Namespace) -> cfglib.TrainConfig:
     data = {k: v for k, v in (("seq_len", args.seq_len),
                               ("image_size", args.image_size),
                               ("num_classes", args.num_classes)) if v}
+    if args.mlm_max_predictions is not None:
+        data["mlm_max_predictions"] = cfglib.resolve_mlm_max_predictions(
+            args.mlm_max_predictions, data.get("seq_len", cfg.data.seq_len),
+            spec.objective)
     # train.py's precedence: --synthetic, then --data-dir, which turns
     # synthetic data off.
     if args.synthetic:

@@ -79,6 +79,16 @@ _LATER_AXES = (
     ("pipeline", "--pp", "pipeline parallelism"),
 )
 _FUSED = ("fused_bn", "fused_block", "fused_conv3")
+# The datasets whose epochs the port knows (config.DataConfig.dataset).
+_DATASETS = ("imagenet", "mlm")
+# Model families by name prefix, for the refusals' messages.
+_FAMILIES = (("bert", "BERT"), ("vit", "ViT"), ("densenet", "DenseNet"),
+             ("gpt", "GPT"), ("llama", "Llama"), ("resnet", "ResNet"))
+
+
+def _family(model: str) -> str:
+    return next((fam for prefix, fam in _FAMILIES
+                 if model.startswith(prefix)), model)
 
 
 def steps_per_epoch(config: TrainConfig) -> Optional[int]:
@@ -111,8 +121,10 @@ def check_layout(config: TrainConfig, world: Optional[int] = None) -> None:
     path); every other mesh axis stays 1; the global batch must split over
     the ranks and each shard over ``--accum``; ``--sync-bn`` needs a
     BatchNorm model without ``fused_bn`` and a process group. Also refuses
-    a dataset other than ImageNet (BERT's MLM data) and a fused BatchNorm
-    flag on a model without that path. The data source is checked apart
+    a dataset other than ImageNet and BERT's MLM data, a model of a later
+    slice (``models.LATER_MODELS``), ring or zigzag attention (the
+    sequence-parallel slice) and a fused BatchNorm flag on a model without
+    that path (any but a ResNet). The data source is checked apart
     (``data.check_loader``): any ``data_dir`` and loader the port reads
     splits over the ranks as a synthetic batch does."""
     for axis, flag, later in _LATER_AXES:
@@ -122,31 +134,39 @@ def check_layout(config: TrainConfig, world: Optional[int] = None) -> None:
             raise ValueError(
                 f"{name} {size}: the port shards only the data axis; "
                 f"{later} comes with a later slice. Set {name} to 1")
-    if config.data.dataset != "imagenet":
+    if config.data.dataset not in _DATASETS:
         raise ValueError(
-            f"dataset {config.data.dataset!r}: the port knows only "
-            f"'imagenet'; BERT and its MLM data come with a later slice "
-            f"(BERT and ViT)")
-    spec = model_spec(config.model)
+            f"dataset {config.data.dataset!r}: the port knows "
+            f"{' and '.join(map(repr, _DATASETS))}")
+    try:
+        spec = model_spec(config.model)
+    except KeyError as e:
+        raise ValueError(e.args[0]) from None
+    family = _family(config.model)
+    if config.attention_impl in ("ring", "zigzag"):
+        raise ValueError(
+            f"attention_impl={config.attention_impl!r}: {config.model} "
+            f"({family}) would shard the sequence over the 'seq' mesh axis; "
+            f"ring and zigzag attention come with the sequence-parallel "
+            f"slice. Use --attn dense or flash")
     data, accum = config.parallel.data, config.grad_accum_steps
     if spec.input_kind != "image":
         if data > 1 or accum > 1:
             raise ValueError(
-                f"--dp {data} --accum {accum}: {config.model} is a token "
-                f"model, which the JAX package trains on its GSPMD path "
-                f"(make_gspmd_train_step); {_GSPMD} comes with a later "
+                f"--dp {data} --accum {accum}: {config.model} ({family}) is "
+                f"a token model, which the JAX package trains on its GSPMD "
+                f"path (make_gspmd_train_step); {_GSPMD} comes with a later "
                 f"slice. Set --dp and --accum to 1")
         if config.sync_bn:
             raise ValueError(
                 "sync_bn requires the pure-DP shard_map path (image model, "
                 "no tp/sp/fsdp axes); this config takes the GSPMD path")
-    if config.model.startswith("densenet"):
+    if not config.model.startswith("resnet"):
         on = [f for f in _FUSED if getattr(config, f)]
         if on:
             raise ValueError(
                 f"{', '.join(on)}: {config.model} has no fused BatchNorm "
-                f"path (neither has the JAX DenseNet); its BatchNorm runs "
-                f"plainly")
+                f"path (neither has the JAX {family})")
     have = 1 if world is None else world
     if data != have:
         raise ValueError(
@@ -205,15 +225,23 @@ def build_state(config: TrainConfig, device,
     schedule is made for this config's batch and horizon."""
     if carried is not None:
         return carried, run_schedule(config)
-    if _is_image(config):
+    spec = model_spec(config.model)
+    takes = inspect.signature(spec.build).parameters
+    if spec.input_kind == "image":
         kw: dict[str, Any] = {"num_classes": config.data.num_classes}
         kw.update({f: True for f in _FUSED if getattr(config, f)})
         if config.sync_bn:
             kw["bn_axis_name"] = "data"
     else:
         kw = {"seq_len": config.data.seq_len}
-        if config.attention_impl:
-            kw["attention_impl"] = config.attention_impl
+        if spec.objective == "mlm":
+            # BERT's vocabulary is the data's, as the JAX loop builds it.
+            kw["vocab_size"] = config.data.vocab_size
+    if "image_size" in takes:   # ViT sizes its position table from it
+        kw["image_size"] = config.data.image_size
+    if config.attention_impl and (spec.input_kind == "tokens"
+                                  or "image_size" in takes):
+        kw["attention_impl"] = config.attention_impl
     dtype = _DTYPES[resolve_precision(config).compute_dtype]
     # Weights from the seed alone; the caller's global RNG state is kept.
     with torch.random.fork_rng(
@@ -242,12 +270,12 @@ def make_source(config: TrainConfig, model, device,
     synthetic (the whole global batch without ``dp``), or read from
     ``config.data.data_dir`` from ``start_step`` (``train=False``: the
     held-out split, once)."""
-    image = _is_image(config)
+    spec = model_spec(config.model)
     return datalib.make_source(
-        config, model_spec(config.model).input_kind, device, dp=dp,
-        start_step=start_step, train=train,
-        objective="classify" if image else "causal",
-        vocab_size=None if image else model.cfg.vocab_size)
+        config, spec.input_kind, device, dp=dp, start_step=start_step,
+        train=train, objective=spec.objective,
+        vocab_size=(None if spec.input_kind == "image"
+                    else model.cfg.vocab_size))
 
 
 def _close(source) -> None:
@@ -334,8 +362,9 @@ class _Evaluator(_EvaluatorBase):
 
 
 class _TokenEvaluator(_EvaluatorBase):
-    """Mean per-token loss of a causal LM (perplexity = exp of it), exact
-    over the batches' (loss sum, token count); ``best`` is ``min``."""
+    """Mean per-token loss of a causal LM, or per masked position of BERT
+    (perplexity = exp of it), exact over the batches' (loss sum, token
+    count); ``best`` is ``min``."""
 
     metric_name = "eval_loss"
     best = staticmethod(min)
@@ -364,7 +393,9 @@ def make_evaluator(config: TrainConfig, model, device, num_batches: int,
         return _Evaluator(make, synthetic, num_batches,
                           make_eval_step(config, dp), dp, device)
     return _TokenEvaluator(make, synthetic, num_batches,
-                           make_token_eval_step(config), dp, device)
+                           make_token_eval_step(
+                               config, model_spec(config.model).objective),
+                           dp, device)
 
 
 class _BadStepTracker:

@@ -1,5 +1,5 @@
-"""Losses: counterpart of the causal-LM and classification functions of
-``distributeddeeplearning_tpu/train/losses.py``.
+"""Losses: counterpart of the masked-LM, causal-LM and classification
+functions of ``distributeddeeplearning_tpu/train/losses.py``.
 
 Float32 loss math whatever the compute dtype (the models emit f32 logits):
 bf16 softmax/CE is where mixed-precision training silently loses accuracy.
@@ -10,6 +10,27 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+
+def mlm_loss_sums(logits: torch.Tensor, labels: torch.Tensor):
+    """(sum of per-token CE over the masked positions, their count).
+
+    ``labels`` (B, S) or (B, P) integer, -1 where a position is not a
+    target (the ignore index). The sums aggregate exactly over batches
+    (eval perplexity); :func:`mlm_loss` is their mean."""
+    logits = logits.float()
+    weights = (labels >= 0).float()
+    target = labels.long().clamp_min(0)
+    per_tok = (torch.logsumexp(logits, dim=-1)
+               - logits.gather(-1, target[..., None])[..., 0])
+    return (per_tok * weights).sum(), weights.sum()
+
+
+def mlm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Masked-LM cross entropy: mean over the masked positions, the count
+    clamped at 1 (a batch with no target gives 0)."""
+    total, count = mlm_loss_sums(logits, labels)
+    return total / count.clamp_min(1.0)
 
 
 def causal_lm_loss_sums(logits: torch.Tensor, input_ids: torch.Tensor,

@@ -6,12 +6,15 @@ replica on one card; with one (``parallel/process_group.py``) each rank
 holds a full replica and its shard of the global batch.
 
 Forward, loss, backward, optional global-norm clip and the optimizer
-update. The loss follows the model's input kind, as the JAX package's
-``_image_loss_fn``/``_token_loss_fn`` do: label-smoothed cross entropy for
-image models (whose train-mode forward also updates the BatchNorm running
-buffers), causal-LM loss for token models. Dropout draws from a CPU
-generator seeded by (seed, step), as the JAX step folds the step into its
-dropout key, so a resumed run drops what an unbroken one would.
+update. The loss follows the model's objective, as the JAX package's
+``_image_loss_fn``/``_token_loss_fn``/``_causal_loss_fn`` do:
+label-smoothed cross entropy for image models (whose train-mode forward
+also updates the BatchNorm running buffers), masked-LM loss for BERT (over
+the dense ``labels``, or the gather head's ``masked_positions`` and
+``masked_labels``), causal-LM loss for the other token models. Dropout
+draws from a CPU generator seeded by (seed, step), as the JAX step folds
+the step into its dropout key, so a resumed run drops what an unbroken one
+would.
 
 A step, in the JAX step's order:
 
@@ -48,6 +51,7 @@ A step, in the JAX step's order:
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from typing import Callable, Optional
 
 import numpy as np
@@ -63,7 +67,8 @@ from distributeddeeplearning_tpu_torch.parallel import collectives
 from distributeddeeplearning_tpu_torch.parallel.process_group import (
     DataParallel)
 from distributeddeeplearning_tpu_torch.train.losses import (
-    causal_lm_loss, causal_lm_loss_sums, smoothed_softmax_ce, top1_accuracy)
+    causal_lm_loss, causal_lm_loss_sums, mlm_loss, mlm_loss_sums,
+    smoothed_softmax_ce, top1_accuracy)
 from distributeddeeplearning_tpu_torch.train.optim import (
     Schedule, clip_by_global_norm_)
 from distributeddeeplearning_tpu_torch.train.state import TrainState
@@ -153,6 +158,25 @@ def split_microbatches(batch: dict, accum: int) -> list[dict]:
             for i in range(accum)]
 
 
+def takes_rng(model) -> bool:
+    """Whether ``model``'s forward takes the dropout generator ``rng``."""
+    return "rng" in inspect.signature(type(model).forward).parameters
+
+
+def gather_head(batch: dict) -> dict:
+    """BERT's gather-head argument: the batch's ``masked_positions``, when
+    it has them (the JAX steps pass them the same way)."""
+    if "masked_positions" in batch:
+        return {"masked_positions": batch["masked_positions"]}
+    return {}
+
+
+def mlm_labels(batch: dict):
+    """The masked-LM targets: ``masked_labels`` of a gathered batch, else
+    the dense ``labels``."""
+    return batch.get("masked_labels", batch.get("labels"))
+
+
 def make_train_step(config: TrainConfig, schedule: Schedule,
                     dp: Optional[DataParallel] = None
                     ) -> Callable[[TrainState, dict], dict]:
@@ -166,7 +190,8 @@ def make_train_step(config: TrainConfig, schedule: Schedule,
     clip = config.optimizer.grad_clip_norm
     smoothing = config.optimizer.label_smoothing
     ema_decay = config.optimizer.ema_decay
-    image = model_spec(config.model).input_kind == "image"
+    spec = model_spec(config.model)
+    image = spec.input_kind == "image"
     policy = resolve_precision(config)
     scaling = policy.loss_scale > 0
     guard = config.bad_step_guard
@@ -175,14 +200,22 @@ def make_train_step(config: TrainConfig, schedule: Schedule,
 
     def forward(model, step: int, batch: dict) -> dict:
         if image:
-            logits = model(batch["image"])
+            # A ViT's dropout draws from the step's generator; a CNN has
+            # no dropout.
+            kw = ({"rng": dropout_rng(config.seed, step)}
+                  if takes_rng(model) else {})
+            logits = model(batch["image"], **kw)
             return {"loss": smoothed_softmax_ce(logits, batch["label"],
                                                 smoothing),
                     "accuracy": top1_accuracy(logits.detach(),
                                               batch["label"])}
         ids, mask = batch["input_ids"], batch.get("attention_mask")
-        logits = model(ids, attention_mask=mask,
-                       rng=dropout_rng(config.seed, step))
+        rng = dropout_rng(config.seed, step)
+        if spec.objective == "mlm":
+            logits = model(ids, attention_mask=mask, rng=rng,
+                           **gather_head(batch))
+            return {"loss": mlm_loss(logits, mlm_labels(batch))}
+        logits = model(ids, attention_mask=mask, rng=rng)
         return {"loss": causal_lm_loss(logits, ids, mask)}
 
     def accumulated_grads(state: TrainState, batch: dict) -> dict:
@@ -308,17 +341,25 @@ def make_eval_step(config: TrainConfig, dp: Optional[DataParallel] = None
     return eval_step
 
 
-def make_token_eval_step(config: TrainConfig
+def make_token_eval_step(config: TrainConfig, objective: str = "causal"
                          ) -> Callable[[TrainState, dict], dict]:
-    """Held-out causal-LM loss: ``eval_step(state, batch) -> {"loss_sum",
-    "count"}`` with dropout off and, when kept, the EMA parameters, so the
-    mean over any number of batches is exact."""
+    """Held-out LM loss: ``eval_step(state, batch) -> {"loss_sum",
+    "count"}``, masked-LM sums for the ``mlm`` objective (BERT) and
+    causal-LM sums otherwise, as JAX ``make_token_eval_step`` takes them,
+    with dropout off and, when kept, the EMA parameters, so the mean over
+    any number of batches is exact."""
     del config
+    mlm = objective == "mlm"
 
     def eval_step(state: TrainState, batch: dict) -> dict:
         ids, mask = batch["input_ids"], batch.get("attention_mask")
-        logits = _eval_forward(state, ids, attention_mask=mask)
-        total, count = causal_lm_loss_sums(logits, ids, mask)
+        if mlm:
+            logits = _eval_forward(state, ids, attention_mask=mask,
+                                   **gather_head(batch))
+            total, count = mlm_loss_sums(logits, mlm_labels(batch))
+        else:
+            logits = _eval_forward(state, ids, attention_mask=mask)
+            total, count = causal_lm_loss_sums(logits, ids, mask)
         return {"loss_sum": total, "count": count}
 
     return eval_step

@@ -4,12 +4,15 @@
 The port's modules are named after the flax tree, so the mapping is a
 renaming plus a layout change:
 
-- ``layer{i}`` (flax submodule) <-> ``layers.{i}`` (``nn.ModuleList``);
+- ``layer{i}`` (flax submodule) <-> ``layers.{i}`` and ``block{i}`` <->
+  ``blocks.{i}`` (``nn.ModuleList``s: the LMs' layers, ViT's blocks);
 - Dense ``kernel`` (in, out) <-> 2-D ``weight`` (out, in);
 - Conv ``kernel`` (kh, kw, in, out) <-> 4-D ``weight`` (out, in, kh, kw),
   ``permute(3, 2, 0, 1)`` one way and ``permute(2, 3, 1, 0)`` the other;
-- norm ``scale`` <-> 1-D ``weight``; ``bias`` and top-level tables (``wte``,
-  ``wpe``, ``embed_tokens``) keep their names and layout;
+- norm ``scale`` <-> 1-D ``weight``; ``bias`` and the top-level leaves
+  (the tables ``wte``, ``wpe``, ``embed_tokens``, ``word_embeddings``,
+  ``position_embeddings``, ``type_embeddings``, ViT's ``cls_token`` and
+  ``pos_embedding``, BERT's ``mlm_bias``) keep their names and layout;
 - ``batch_stats`` ``mean``/``var`` <-> the BatchNorm buffers
   ``running_mean``/``running_var``.
 
@@ -25,7 +28,10 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-_FLAX_LAYER = re.compile(r"^layer(\d+)$")
+# flax submodule prefix <-> ModuleList name.
+_LISTS = {"layer": "layers", "block": "blocks"}
+_FLAX_LIST = re.compile(r"^(layer|block)(\d+)$")
+_LIST_PREFIX = {v: k for k, v in _LISTS.items()}
 # batch_stats leaf <-> BatchNorm buffer.
 _STATS = {"mean": "running_mean", "var": "running_var"}
 _BUFFERS = {v: k for k, v in _STATS.items()}
@@ -63,8 +69,8 @@ def params_from_flax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
         *mods, leaf = parts
         names = []
         for m in mods:
-            hit = _FLAX_LAYER.match(m)
-            names += ["layers", hit.group(1)] if hit else [m]
+            hit = _FLAX_LIST.match(m)
+            names += [_LISTS[hit.group(1)], hit.group(2)] if hit else [m]
         arr = np.asarray(value, dtype=np.float32)
         if stats:
             leaf = _STATS[leaf]
@@ -98,8 +104,8 @@ def _flax_paths(state_dict: Mapping[str, torch.Tensor],
         mods = key.split(".")[:-1]
         names, i = [], 0
         while i < len(mods):
-            if mods[i] == "layers" and i + 1 < len(mods):
-                names.append(f"layer{mods[i + 1]}")
+            if mods[i] in _LIST_PREFIX and i + 1 < len(mods):
+                names.append(f"{_LIST_PREFIX[mods[i]]}{mods[i + 1]}")
                 i += 2
             else:
                 names.append(mods[i])

@@ -1,6 +1,8 @@
 """The port's CUDA kernels on the card, against their plain versions:
 the flash forward (with and without dropout), the dq and dk/dv backward
-kernels, and a tiny GPT's training step on the card against the CPU; the
+kernels, and a tiny GPT's, a 2-layer BERT's (key padding, dense and
+gather heads) and a 1-layer ViT's (S = 197) training steps on the card
+against the CPU; the
 four BatchNorm kernels, and a ``resnet_nano`` training step through them
 against the plain path on the CPU; the three matmul+BatchNorm kernels, and
 a ``resnet_nano`` ``fused_block`` training step through them against the
@@ -19,14 +21,16 @@ import numpy as np
 import pytest
 import torch
 
+from distributeddeeplearning_tpu_torch.models import bert as tbert
 from distributeddeeplearning_tpu_torch.models import gpt as tgpt
 from distributeddeeplearning_tpu_torch.models import resnet as tresnet
+from distributeddeeplearning_tpu_torch.models import vit as tvit
 from distributeddeeplearning_tpu_torch.ops import flash_attention as tfa
 from distributeddeeplearning_tpu_torch.ops import fused_batchnorm as tbn
 from distributeddeeplearning_tpu_torch.ops import fused_conv_bn as tfc
 from distributeddeeplearning_tpu_torch.ops import fused_linear_bn as tflb
 from distributeddeeplearning_tpu_torch.train.losses import (
-    causal_lm_loss, smoothed_softmax_ce)
+    causal_lm_loss, mlm_loss, smoothed_softmax_ce)
 
 # Kernel vs plain version on the card. f32: the same f32 arithmetic summed
 # in another order. bf16: o is rounded to bf16 at the end.
@@ -350,6 +354,90 @@ def test_training_step_on_card_matches_cpu(cuda_device, monkeypatch):
         scale = max(p.grad.abs().max().item(), 1e-4 * top)
         torch.testing.assert_close(q.grad.cpu(), p.grad, rtol=1e-4,
                                    atol=1e-4 * scale, msg=name)
+
+
+def _grads_close(cpu, card):
+    """Each gradient of ``card`` within 1e-4 of its largest |ref| on
+    ``cpu``; a gradient zero in exact arithmetic (the key bias) within
+    1e-8 of the largest gradient of the model."""
+    top = max(p.grad.abs().max().item() for p in cpu.parameters())
+    for (name, p), q in zip(cpu.named_parameters(), card.parameters()):
+        scale = max(p.grad.abs().max().item(), 1e-4 * top)
+        torch.testing.assert_close(q.grad.cpu(), p.grad, rtol=1e-4,
+                                   atol=1e-4 * scale, msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gather", [False, True])
+def test_bert_step_on_card_matches_cpu(cuda_device, monkeypatch, gather):
+    """A 2-layer BERT at a kernel head dim (64: 128 wide, 2 heads), keys
+    padded in one row, attention dropout 0.1: one forward and backward
+    through the three kernels on the card (non-causal, key padding)
+    against the plain versions on the CPU, with the dense head and the
+    gather head. Each layer's seed comes from the same CPU generator on
+    both sides; the residual and embedding sites draw torch's device RNG,
+    so they are off here."""
+    monkeypatch.setattr(tbert, "dropout", lambda x, rate, rng: x)
+    torch.manual_seed(0)
+    build = dict(vocab_size=97, hidden_size=128, num_heads=2,
+                 attention_impl="flash", dropout_rate=0.1)
+    cpu = tbert.tiny_bert_mlm(**build).train()
+    card = tbert.tiny_bert_mlm(**build).to(cuda_device).train()
+    card.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(4)
+    ids = torch.from_numpy(rng.integers(1, 97, (2, 80)))
+    mask = _mask(80, (80, 57), "cpu")
+    pos = torch.from_numpy(np.sort(rng.permutation(57)[:12])).expand(2, 12)
+    labels = torch.full((2, 80), -1, dtype=torch.int32)
+    labels[:, pos[0]] = ids[:, pos[0]].int()
+    before = (tfa.launches, tfa.dq_launches, tfa.dkv_launches)
+    losses = []
+    for model, dev in ((cpu, "cpu"), (card, cuda_device)):
+        kw = {"masked_positions": pos.to(dev)} if gather else {}
+        logits = model(ids.to(dev), attention_mask=mask.to(dev),
+                       rng=torch.Generator().manual_seed(3), **kw)
+        target = labels.gather(1, pos) if gather else labels
+        loss = mlm_loss(logits, target.to(dev))
+        loss.backward()
+        losses.append(loss.item())
+    torch.cuda.synchronize()
+    assert (tfa.launches, tfa.dq_launches, tfa.dkv_launches) == tuple(
+        n + 2 for n in before)  # one of each per layer on the card
+    assert losses[1] == pytest.approx(losses[0], rel=1e-5)
+    _grads_close(cpu, card)
+
+
+@pytest.mark.cuda
+def test_vit_step_on_card_matches_cpu(cuda_device, monkeypatch):
+    """A 1-layer ViT at 224 px with 16 px patches (S = 197, ragged in the
+    kernels' last tile) at a kernel head dim (64: 128 wide, 2 heads): one
+    forward and backward through the three kernels on the card against the
+    plain versions on the CPU. The patch convolution is cuDNN's, so TF32
+    is off."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    torch.manual_seed(0)
+    build = dict(num_classes=10, image_size=224, patch_size=16,
+                 hidden_size=128, num_heads=2, num_layers=1,
+                 attention_impl="flash")
+    cpu = tvit.tiny_vit(**build).train()
+    torch.nn.init.normal_(cpu.classifier.weight, std=0.1)
+    card = tvit.tiny_vit(**build).to(cuda_device).train()
+    card.load_state_dict(cpu.state_dict())
+    images = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (2, 224, 224, 3)).astype(np.float32))
+    labels = torch.tensor([1, 7])
+    before = (tfa.launches, tfa.dq_launches, tfa.dkv_launches)
+    losses = []
+    for model, dev in ((cpu, "cpu"), (card, cuda_device)):
+        loss = smoothed_softmax_ce(model(images.to(dev)), labels.to(dev))
+        loss.backward()
+        losses.append(loss.item())
+    torch.cuda.synchronize()
+    assert (tfa.launches, tfa.dq_launches, tfa.dkv_launches) == tuple(
+        n + 1 for n in before)
+    assert losses[1] == pytest.approx(losses[0], rel=1e-5)
+    _grads_close(cpu, card)
 
 
 # BatchNorm kernels vs plain versions on the card, per channel column. The

@@ -15,8 +15,9 @@ CPU.
   unscaled step's bit for bit on ``resnet_nano``, plain, with ``fused_bn``
   and with ``fused_block`` + ``fused_conv3`` (the kernels' plain versions).
 - The CLI refuses what the run's layout does not carry (a preset's ``--dp
-  8`` in a world of 1, a shard that ``--accum 16`` does not split, BERT,
-  ``--sp 4``), and runs ``--config densenet121_dp --dp 1 --precision
+  8`` in a world of 1, a shard that ``--accum 16`` does not split, BERT's
+  preset at its own ``--dp 8`` and its ring attention, ``--sp 4``), and
+  runs ``--config densenet121_dp --dp 1 --precision
   mixed``.
 """
 
@@ -227,7 +228,7 @@ def test_scaled_step_gradients_are_bitwise(fused):
     (["--config", "densenet121_dp"], "--dp 8"),
     (["--config", "resnet50_lars_32k", "--dp", "1", "--batch-size", "40"],
      "--accum 16"),
-    (["--config", "bert_base_mlm", "--dp", "1"], "BERT"),
+    (["--config", "bert_base_mlm"], "BERT"),
     (["--config", "bert_base_mlm_longctx", "--dp", "1", "--sp", "1"],
      "BERT"),
     (["--config", "bert_base_mlm_longctx", "--dp", "1"], "--sp 4"),
