@@ -165,7 +165,25 @@ Run from the root of a checkout. Phases:
    within 0.3 of ln 1000; images/s, peak memory and the profile;
 27. one f32 training step at full width through flash and through dense
    from the same weights and batch, held as phase 9: BERT-base at batch 8
-   x 128 with padded keys and dropout 0.1, and ViT-B/16 at batch 8.
+   x 128 with padded keys and dropout 0.1, and ViT-B/16 at batch 8;
+28. token models on the data axis: ``python -m torch.distributed.run
+   --standalone --nproc-per-node 1 -m distributeddeeplearning_tpu_torch.
+   train --config bert_base_mlm --dp 1 --accum 8 --attn flash
+   --synthetic`` for 4 steps, the preset's global batch of 256 as 8
+   microbatches of 32 x 128 (the per-chip shape of its own ``--dp 8``) in
+   an NCCL group of one; #1-#3 12 x 8 launches a step each (the worker's
+   counts, from its summary), no other kernel; losses finite and the
+   first within 0.5 of ln 30522; tokens/s, peak memory and a device-time
+   profile of one step. Then one BERT-base step (bf16, flash, dropout 0.1,
+   batch 32 x 128 with PAD tails, ``--accum 2``) through the
+   data-parallel step (world 1, NCCL, in this process) against the
+   one-card step from the same weights and batch: the loss, every gradient
+   and every updated parameter bit for bit. Then one f32 step of GPT-2
+   small (flash, dropout 0) at batch 8 x 1024 with ``--accum 2`` against
+   ``--accum 1`` on the same batch: the loss within 1e-5 and every
+   gradient within 1e-4 of its tensor's largest |ref| (floored at 1e-4 of
+   the largest of all). A world above 1 is held on the CPU with gloo only
+   (``tests/test_torch_token_dp.py``).
 
 Each phase prints its wall seconds. It prints a ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, "device": {...}}``. Any failed phase exits
@@ -1442,6 +1460,20 @@ def phase_flash_vs_dense_step(failures) -> None:
         failures, SEED + 6)
 
 
+def worst_grad_err(out: dict, ref: dict) -> tuple[float, str]:
+    """The largest error of a gradient of ``out`` against ``ref`` (by
+    name), each relative to max(its largest |ref|, 1e-4 of the largest of
+    all), and its name."""
+    top = max(g.abs().max().item() for g in ref.values())
+    worst, worst_name = 0.0, None
+    for name, r in ref.items():
+        scale = max(r.abs().max().item(), 1e-4 * top)
+        err = (out[name] - r).abs().max().item() / scale
+        if err >= worst:
+            worst, worst_name = err, name
+    return worst, worst_name
+
+
 def flash_vs_dense_step(label, build, forward, failures, seed) -> dict:
     """One f32 training step of the model ``build(impl)`` gives, its
     weights drawn after ``torch.manual_seed(seed)``, through flash and
@@ -1465,13 +1497,7 @@ def flash_vs_dense_step(label, build, forward, failures, seed) -> dict:
         losses[impl] = loss.item()
         grads[impl] = {n: p.grad for n, p in model.named_parameters()}
         del model, loss
-    top = max(g.abs().max().item() for g in grads["dense"].values())
-    worst, worst_name = 0.0, None
-    for name, ref in grads["dense"].items():
-        scale = max(ref.abs().max().item(), 1e-4 * top)
-        err = (grads["flash"][name] - ref).abs().max().item() / scale
-        if err >= worst:
-            worst, worst_name = err, name
+    worst, worst_name = worst_grad_err(grads["flash"], grads["dense"])
     loss_err = abs(losses["flash"] - losses["dense"])
     record = {"losses": losses, "loss_err": loss_err, "worst_grad_err": worst,
               "worst_grad": worst_name}
@@ -3058,6 +3084,185 @@ def phase_model_rows(fa, failures) -> dict:
     return rows
 
 
+# Phase 28: the bert_base_mlm preset's global batch of 256 as --accum 8
+# under torchrun: microbatches of 32 x 128, the per-chip shape of the
+# preset's --dp 8.
+TOKEN_DP_ACCUM, TOKEN_DP_STEPS = 8, 4
+TOKEN_DP_ARGV = ["--config", "bert_base_mlm", "--dp", "1", "--accum",
+                 str(TOKEN_DP_ACCUM), "--attn", "flash", "--synthetic",
+                 "--steps", str(TOKEN_DP_STEPS), "--log-every", "1",
+                 "--seed", str(SEED)]
+TOKEN_DP_TIMEOUT_S = 420
+# The world-1 bitwise step: BERT-base at this batch, --accum 2.
+TOKEN_BITWISE_BATCH = 32
+# GPT-2 small at --accum 2 against --accum 1 (f32, same global batch).
+ACCUM_STEP_BATCH = 8
+ACCUM_LOSS_TOL = 1e-5
+ACCUM_GRAD_TOL = 1e-4
+
+
+def phase_token_dp_train(kernels, failures) -> dict:
+    """Phase 28's first part: the ``bert_base_mlm`` preset as ``--dp 1
+    --accum 8`` under ``torchrun`` (an NCCL group of one); the worker's
+    summary holds its kernel launches and peak memory. Then a device-time
+    profile of one such step in this process."""
+    from distributeddeeplearning_tpu_torch.ops import flash_attention as fa
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "1", "-m",
+           "distributeddeeplearning_tpu_torch.train", *TOKEN_DP_ARGV]
+    t0 = time.perf_counter()
+    done = run_process(cmd, TOKEN_DP_TIMEOUT_S)
+    wall_s = time.perf_counter() - t0
+    lines = []
+    for line in done.stdout.splitlines():
+        with contextlib.suppress(ValueError):
+            lines.append(json.loads(line))
+    metrics, _, summary = split_lines(lines) if lines else ([], [], {})
+    losses = [x["loss"] for x in metrics]
+    launches = summary.get("kernel_launches", {})
+    per_step = BERT_LAYERS * TOKEN_DP_ACCUM
+    expected = {k["name"]: per_step * TOKEN_DP_STEPS if k["module"] is fa
+                else 0 for k in kernels}
+    record = {"wall_s": wall_s, "rc": done.returncode, "launches": launches,
+              "losses": losses,
+              "tokens_per_sec": summary.get("tokens_per_sec"),
+              "peak_memory_gb": summary.get("peak_memory_gb"),
+              "data_parallel": summary.get("data_parallel")}
+    log("# bert_base_mlm --dp 1 --accum 8 under torchrun (NCCL, world 1, "
+        "microbatches of 32 x 128): " + json.dumps(record))
+    if done.returncode != 0:
+        failures.append(f"torchrun token DP run exited {done.returncode}: "
+                        f"{done.stderr[-3000:]}")
+        return record
+    if launches != expected:
+        failures.append(f"token DP path launches {launches}, expected "
+                        f"{expected}")
+    first = float(np.log(BERT_VOCAB))
+    if (len(losses) != TOKEN_DP_STEPS
+            or not all(np.isfinite(x) for x in losses)
+            or abs(losses[0] - first) > FIRST_LOSS_TOL):
+        failures.append(f"token DP losses {losses}: need {TOKEN_DP_STEPS} "
+                        f"finite, the first within {FIRST_LOSS_TOL} of ln "
+                        f"{BERT_VOCAB}")
+    dp = summary.get("data_parallel") or {}
+    if dp.get("world") != 1 or dp.get("backend") != "nccl":
+        failures.append(f"token DP run not in an NCCL group of one: {dp}")
+    if not summary.get("tokens_per_sec"):
+        failures.append(f"token DP summary without tokens/s: {summary}")
+    record["profile"] = model_step_profile(
+        "bert_base_mlm --accum 8 train step (bf16, flash, dropout 0.1, "
+        "dense head, 8 x 32 x 128)", TOKEN_DP_ARGV, BERT_SEQ)
+    return record
+
+
+def phase_token_dp_bitwise(failures, scratch: Path) -> None:
+    """Phase 28's second part: one BERT-base step at ``--accum 2`` (the
+    preset's bf16 policy, flash, dropout 0.1, batch 32 x 128 with PAD
+    tails, the dense head) through the data-parallel step (an NCCL group
+    of one, in this process) against the one-card step from the same
+    weights and batch: loss, gradients and updated parameters bit for bit
+    (the count's and the gradients' one-rank sums, the scaling by the
+    world of 1 and rank 0's dropout streams are exact)."""
+    import torch
+    import torch.distributed as dist
+
+    from distributeddeeplearning_tpu_torch.parallel.process_group import (
+        DataParallel)
+    from distributeddeeplearning_tpu_torch.train import cli as train_cli
+    from distributeddeeplearning_tpu_torch.train import loop, steps
+
+    rng = np.random.default_rng(SEED + 28)
+    b = TOKEN_BITWISE_BATCH
+    lengths = rng.integers(40, BERT_SEQ + 1, b)
+    mask = np.arange(BERT_SEQ)[None, :] < lengths[:, None]
+    ids = rng.integers(1000, BERT_VOCAB, (b, BERT_SEQ)) * mask
+    labels = np.where(mask & (rng.random((b, BERT_SEQ)) < 0.15), ids, -1)
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in (
+        ("input_ids", ids), ("attention_mask", mask.astype(np.int32)),
+        ("labels", labels))}
+    config = train_cli.build_config(train_cli.parse_args(
+        ["--config", "bert_base_mlm", "--dp", "1", "--accum", "2",
+         "--attn", "flash", "--batch-size", str(b), "--steps", "2",
+         "--seed", str(SEED + 28)]))
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", init_method=f"file://{scratch / 'nccl_rendezvous_tokens'}",
+        rank=0, world_size=1)
+    try:
+        runs = []
+        for dp in (None, DataParallel(0, 1)):
+            state, sched = loop.build_state(config, torch.device("cuda"))
+            metrics = steps.make_train_step(config, sched, dp)(state, batch)
+            runs.append((float(metrics["loss"]),
+                         {f"grad {n}": p.grad.clone() for n, p in
+                          state.model.named_parameters()}
+                         | {f"after {k}": v.clone() for k, v in
+                            state.model.state_dict().items()}))
+            del state
+            torch.cuda.empty_cache()
+        (loss_1, one), (loss_dp, dp_run) = runs
+        differ = [k for k in one if not torch.equal(one[k], dp_run[k])]
+        log(f"# bert_base bf16 step --accum 2, dropout 0.1, DP (NCCL, world "
+            f"1) vs one card (batch {b} x {BERT_SEQ}): losses {loss_dp!r} / "
+            f"{loss_1!r}, {len(one) - len(differ)} of {len(one)} tensors "
+            f"bit for bit; differing: {differ}")
+        if loss_dp != loss_1 or differ:
+            failures.append(f"token DP world-1 step differs from the "
+                            f"one-card step: losses {loss_dp} / {loss_1}, "
+                            f"tensors {differ}")
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_accum_step(failures) -> None:
+    """Phase 28's third part: one f32 step of GPT-2 small (flash, dropout
+    0, no clipping) at batch 8 x 1024 with ``--accum 2`` against
+    ``--accum 1`` on the same batch and weights: every microbatch counts
+    the same tokens, so the two are the same gradient up to summation
+    order."""
+    import torch
+
+    from distributeddeeplearning_tpu_torch import config as cfglib
+    from distributeddeeplearning_tpu_torch.models import get_model
+    from distributeddeeplearning_tpu_torch.train import optim, steps
+    from distributeddeeplearning_tpu_torch.train.state import TrainState
+
+    ids = torch.as_tensor(np.random.default_rng(SEED + 30).integers(
+        1, VOCAB, (ACCUM_STEP_BATCH, TRAIN_SEQ)), device="cuda")
+    grads, losses, weights = {}, {}, None
+    torch.manual_seed(SEED + 30)
+    for accum in (1, 2):
+        config = cfglib.TrainConfig(
+            model="gpt2_small", global_batch_size=ACCUM_STEP_BATCH,
+            dtype="float32", attention_impl="flash", grad_accum_steps=accum)
+        model = get_model("gpt2_small", dtype=torch.float32,
+                          attention_impl="flash", dropout_rate=0.0).train()
+        if weights is None:
+            weights = model.state_dict()
+        else:
+            model.load_state_dict(weights)
+        opt, sched = optim.make_optimizer(config.optimizer, model,
+                                          ACCUM_STEP_BATCH, 1)
+        state = TrainState(step=0, model=model, optimizer=opt)
+        metrics = steps.make_train_step(config, sched)(
+            state, {"input_ids": ids})
+        losses[accum] = float(metrics["loss"])
+        grads[accum] = {n: p.grad for n, p in model.named_parameters()}
+        del model, state, opt
+    worst, worst_name = worst_grad_err(grads[2], grads[1])
+    loss_err = abs(losses[2] - losses[1])
+    record = {"losses": losses, "loss_err": loss_err, "worst_grad_err": worst,
+              "worst_grad": worst_name}
+    log(f"# gpt2_small f32 step (batch {ACCUM_STEP_BATCH} x {TRAIN_SEQ}), "
+        f"--accum 2 vs --accum 1: " + json.dumps(record))
+    if not loss_err <= ACCUM_LOSS_TOL or not worst <= ACCUM_GRAD_TOL:
+        failures.append(f"--accum 2 vs --accum 1 step: loss err {loss_err}, "
+                        f"gradient err {worst} ({worst_name})")
+    del grads
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -3192,6 +3397,11 @@ def main() -> int:
                      failures, scratch)
         vit = timed("vit_b16_train", phase_vit_train, kernels, failures)
         timed("bert_vit_flash_vs_dense_step", phase_model_steps, failures)
+        token_dp = timed("token_dp_train", phase_token_dp_train, kernels,
+                         failures)
+        timed("token_dp_vs_one_card_step", phase_token_dp_bitwise, failures,
+              scratch)
+        timed("accum_vs_one_step", phase_accum_step, failures)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     log(f"# total: {time.perf_counter() - t_start:.2f} s")
@@ -3227,7 +3437,9 @@ def main() -> int:
                 "bert_mlm_synthetic": bert["synthetic"]["launches"][
                     k["name"]],
                 "bert_mlm_shards": bert["shards"]["launches"][k["name"]],
-                "vit_b16": vit["launches"][k["name"]]}
+                "vit_b16": vit["launches"][k["name"]],
+                "bert_mlm_accum8_torchrun": token_dp["launches"].get(
+                    k["name"])}
             for shape, by_kernel in model_rows.items():
                 extra[f"{shape}_shape"] = {
                     key: by_kernel[k["name"]].get(key) for key in (

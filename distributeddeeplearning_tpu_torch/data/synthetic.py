@@ -22,9 +22,10 @@ import numpy as np
 import torch
 
 
-def step_seed(seed: int, step: int, stream: int = 0) -> int:
-    """A 63-bit generator seed mixed from (seed, step, stream)."""
-    state = np.random.SeedSequence([seed & 0xFFFFFFFF, step, stream])
+def step_seed(seed: int, step: int, stream: int = 0, *fold: int) -> int:
+    """A 63-bit generator seed mixed from (seed, step, stream) and any
+    further ``fold`` words (none: the seed of (seed, step, stream))."""
+    state = np.random.SeedSequence([seed & 0xFFFFFFFF, step, stream, *fold])
     return int(state.generate_state(1, dtype=np.uint64)[0] >> np.uint64(1))
 
 

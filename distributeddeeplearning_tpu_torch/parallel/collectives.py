@@ -19,6 +19,9 @@ size-targeted buckets instead. Here:
   "allreduce/bucketNN")``, so a profile names and times it.
 - :func:`cross_replica_mean` is SyncBN's ``pmean``: a sum all-reduce over
   the group divided by its size, forward and backward.
+- :func:`psum_` sums one small tensor over the group in place (a token
+  step's counts of scored positions, the token eval's sums), under
+  ``record_function("allreduce/psum")``.
 
 The reduction runs after the backward pass, not overlapped with it (the
 JAX step leaves that overlap to XLA's scheduler).
@@ -210,6 +213,16 @@ def all_reduce_gradients(grads: Mapping[str, torch.Tensor], *, group=None,
     return all_reduce(grads, group=group,
                       bucket_bytes=int(float(bucket_mb) * _MB),
                       payload_dtype=payload, algorithm=algorithm, plan=plan)
+
+
+def psum_(tensor: torch.Tensor, group=None) -> torch.Tensor:
+    """``tensor`` replaced in place by its sum over the ranks of ``group``
+    (default: the whole world) by one all-reduce, and returned. Nothing is
+    read on the host: on the card the sum is queued on the stream like any
+    kernel."""
+    with torch.profiler.record_function("allreduce/psum"):
+        dist.all_reduce(tensor, group=group)
+    return tensor
 
 
 class _CrossReplicaMean(torch.autograd.Function):

@@ -1,6 +1,6 @@
 """Training CLI of the PyTorch port: causal-LM, BERT masked-LM, ResNet,
-DenseNet and ViT training on one card, and the image models data-parallel
-over the ranks of a ``torchrun`` launch.
+DenseNet and ViT training on one card, or data-parallel over the ranks of
+a ``torchrun`` launch, with gradient accumulation either way.
 
     python -m distributeddeeplearning_tpu_torch.train --model gpt2_small \
         --batch-size 16 --seq-len 1024 --attn flash --synthetic --steps 100
@@ -36,6 +36,11 @@ over the ranks of a ``torchrun`` launch.
         --mlm-max-predictions -1 --steps 1000
     python -m distributeddeeplearning_tpu_torch.train --model vit_b16 \
         --batch-size 256 --synthetic --attn flash --steps 100
+    python -m torch.distributed.run --standalone --nproc-per-node 8 -m \
+        distributeddeeplearning_tpu_torch.train --config bert_base_mlm \
+        --attn flash --synthetic --steps 100
+    python -m distributeddeeplearning_tpu_torch.train --config \
+        bert_base_mlm --dp 1 --accum 8 --attn flash --synthetic --steps 100
 
 The counterpart of the root ``train.py`` for these models, with its flags
 where they apply: a preset by name (``--config``, ``--list-configs``)
@@ -44,7 +49,9 @@ scaling, sgd/lars/adamw/lamb, an EMA of the weights, a staged batch ramp,
 held-out eval (``--eval-batches``, ``--eval-only``), the bad-step guard,
 data parallelism (``--dp N`` under ``torchrun --nproc-per-node N``: NCCL
 on the card, gloo with ``--device cpu``; the bucketed gradient all-reduce,
-``--allreduce-*``; ``--sync-bn``), gradient accumulation (``--accum``) and
+``--allreduce-*``; ``--sync-bn`` for image models; a token model's loss is
+the mean over the global batch's scored tokens, as the JAX package's GSPMD
+step takes it), gradient accumulation (``--accum``) and
 a profile of a few steps (``--profile-steps``). Data is synthetic token ids
 (masked-LM batches for BERT) or images made on the device
 (``--synthetic``, the default), or read from ``--data-dir``: an image
@@ -56,9 +63,8 @@ prints one JSON metric line per log step and a final ``{"summary": ...}``
 line. Runs on the GPU unless ``--device cpu`` is given. Without
 ``--steps`` an image run lasts ``--epochs`` epochs of ImageNet, or of the
 image folder. Flags, models and presets of later slices (a mesh axis other
-than data above 1, ``--dp`` above 1 for a token model, ring attention,
-MoE and pipelined models, ZeRO, TFRecords, grain) raise instead of being
-ignored.
+than data above 1, ring attention, MoE and pipelined models, ZeRO,
+TFRecords, grain) raise instead of being ignored.
 """
 
 from __future__ import annotations
@@ -187,13 +193,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "(default 10)")
     p.add_argument("--accum", type=int, default=None,
                    help="gradient-accumulation microbatches per update: "
-                        "each rank's shard splits into this many, their "
-                        "gradients summed and divided once")
+                        "each rank's shard splits into this many "
+                        "consecutive row blocks, their gradients summed and "
+                        "divided once; a token model's microbatch loss is "
+                        "the mean over its scored tokens on every rank")
     for flag, _ in _MESH:
         p.add_argument(f"--{flag}", type=int, default=None,
                        help=argparse.SUPPRESS if flag != "dp" else
-                       "data-parallel size: the world of a torchrun launch "
-                       "(torchrun --nproc-per-node N); 1 without torchrun")
+                       "data-parallel size of any model: the world of a "
+                       "torchrun launch (torchrun --nproc-per-node N); 1 "
+                       "without torchrun")
     p.add_argument("--sync-bn", action="store_true",
                    help="cross-replica BatchNorm statistics (a mean over "
                         "the ranks, torch SyncBatchNorm semantics; image "

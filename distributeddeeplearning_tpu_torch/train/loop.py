@@ -1,7 +1,9 @@
 """The training loop of the port: counterpart of
 ``distributeddeeplearning_tpu/train/loop.py`` for one card, and for the
-explicit data-parallel path of image models over a ``torch.distributed``
-process group (``torchrun``; ``parallel/process_group.py``).
+data-parallel path over a ``torch.distributed`` process group
+(``torchrun``; ``parallel/process_group.py``): the JAX package's explicit
+DP step for image models, its GSPMD step on a data-only mesh for token
+models.
 
 Builds the model (float32 masters, compute dtype from the precision
 policy), the optimizer and schedule (warmup in epochs of
@@ -113,12 +115,13 @@ def steps_per_epoch(config: TrainConfig) -> Optional[int]:
 
 
 def check_layout(config: TrainConfig, world: Optional[int] = None) -> None:
-    """Refuse a layout the port does not carry, naming the flag and the
-    slice that brings it. ``world``: the run's process-group size (None:
-    no group, one card). An image model shards ``--dp`` = ``world`` ranks
-    (1 without a group); a token model takes neither ``--dp`` nor
-    ``--accum`` above 1 (the JAX package trains token models on its GSPMD
-    path); every other mesh axis stays 1; the global batch must split over
+    """Refuse a layout the port does not carry, naming the flag, the model
+    and its family, and the slice that brings it. ``world``: the run's
+    process-group size (None: no group, one card). Every model shards
+    ``--dp`` = ``world`` ranks (1 without a group) and takes ``--accum``
+    (a token model as the JAX package's GSPMD step on a data-only mesh,
+    ``train/steps.py``); every other mesh axis stays 1 (FSDP and tensor
+    parallelism are the GSPMD slice's); the global batch must split over
     the ranks and each shard over ``--accum``; ``--sync-bn`` needs a
     BatchNorm model without ``fused_bn`` and a process group. Also refuses
     a dataset other than ImageNet and BERT's MLM data, a model of a later
@@ -127,13 +130,15 @@ def check_layout(config: TrainConfig, world: Optional[int] = None) -> None:
     that path (any but a ResNet). The data source is checked apart
     (``data.check_loader``): any ``data_dir`` and loader the port reads
     splits over the ranks as a synthetic batch does."""
+    family = _family(config.model)
     for axis, flag, later in _LATER_AXES:
         size = getattr(config.parallel, axis)
         if size > 1:
             name = flag or f"parallel.{axis}"
             raise ValueError(
-                f"{name} {size}: the port shards only the data axis; "
-                f"{later} comes with a later slice. Set {name} to 1")
+                f"{name} {size}: {config.model} ({family}): the port shards "
+                f"only the data axis; {later} comes with a later slice. Set "
+                f"{name} to 1")
     if config.data.dataset not in _DATASETS:
         raise ValueError(
             f"dataset {config.data.dataset!r}: the port knows "
@@ -142,36 +147,29 @@ def check_layout(config: TrainConfig, world: Optional[int] = None) -> None:
         spec = model_spec(config.model)
     except KeyError as e:
         raise ValueError(e.args[0]) from None
-    family = _family(config.model)
     if config.attention_impl in ("ring", "zigzag"):
         raise ValueError(
             f"attention_impl={config.attention_impl!r}: {config.model} "
             f"({family}) would shard the sequence over the 'seq' mesh axis; "
             f"ring and zigzag attention come with the sequence-parallel "
             f"slice. Use --attn dense or flash")
-    data, accum = config.parallel.data, config.grad_accum_steps
-    if spec.input_kind != "image":
-        if data > 1 or accum > 1:
-            raise ValueError(
-                f"--dp {data} --accum {accum}: {config.model} ({family}) is "
-                f"a token model, which the JAX package trains on its GSPMD "
-                f"path (make_gspmd_train_step); {_GSPMD} comes with a later "
-                f"slice. Set --dp and --accum to 1")
-        if config.sync_bn:
-            raise ValueError(
-                "sync_bn requires the pure-DP shard_map path (image model, "
-                "no tp/sp/fsdp axes); this config takes the GSPMD path")
+    if spec.input_kind != "image" and config.sync_bn:
+        raise ValueError(
+            "sync_bn requires the pure-DP shard_map path (image model, "
+            "no tp/sp/fsdp axes); this config takes the GSPMD path")
     if not config.model.startswith("resnet"):
         on = [f for f in _FUSED if getattr(config, f)]
         if on:
             raise ValueError(
                 f"{', '.join(on)}: {config.model} has no fused BatchNorm "
                 f"path (neither has the JAX {family})")
+    data = config.parallel.data
     have = 1 if world is None else world
     if data != have:
         raise ValueError(
             f"--dp {data} needs a world of {data} processes (torchrun "
-            f"--nproc-per-node {data}); this run has {have}")
+            f"--nproc-per-node {data}) to train {config.model} ({family}); "
+            f"this run has {have}")
     config.per_device_batch  # noqa: B018 - raises on an uneven split
     if config.sync_bn:
         if "bn_axis_name" not in inspect.signature(spec.build).parameters:
@@ -394,7 +392,8 @@ def make_evaluator(config: TrainConfig, model, device, num_batches: int,
                           make_eval_step(config, dp), dp, device)
     return _TokenEvaluator(make, synthetic, num_batches,
                            make_token_eval_step(
-                               config, model_spec(config.model).objective),
+                               config, model_spec(config.model).objective,
+                               dp),
                            dp, device)
 
 

@@ -46,12 +46,21 @@ def causal_lm_loss_sums(logits: torch.Tensor, input_ids: torch.Tensor,
     target = input_ids[:, 1:].long()
     per_tok = (torch.logsumexp(pred, dim=-1)
                - pred.gather(-1, target[..., None])[..., 0])
-    if attention_mask is None:
-        weights = torch.ones_like(per_tok)
-    else:
-        mask = attention_mask.float()
-        weights = mask[:, :-1] * mask[:, 1:]
+    weights = causal_lm_weights(input_ids, attention_mask)
     return (per_tok * weights).sum(), weights.sum()
+
+
+def causal_lm_weights(input_ids: torch.Tensor,
+                      attention_mask: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """The (B, S - 1) float 0/1 weights of the scored predictions: 1 where
+    the query and its target are both real tokens. Their sum is the count
+    :func:`causal_lm_loss_sums` returns, known before the forward."""
+    if attention_mask is None:
+        b, s = input_ids.shape
+        return torch.ones((b, s - 1), device=input_ids.device)
+    mask = attention_mask.float()
+    return mask[:, :-1] * mask[:, 1:]
 
 
 def causal_lm_loss(logits: torch.Tensor, input_ids: torch.Tensor,

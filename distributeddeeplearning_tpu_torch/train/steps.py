@@ -12,9 +12,28 @@ label-smoothed cross entropy for image models (whose train-mode forward
 also updates the BatchNorm running buffers), masked-LM loss for BERT (over
 the dense ``labels``, or the gather head's ``masked_positions`` and
 ``masked_labels``), causal-LM loss for the other token models. Dropout
-draws from a CPU generator seeded by (seed, step), as the JAX step folds
-the step into its dropout key, so a resumed run drops what an unbroken one
-would.
+draws from a CPU generator seeded by (seed, step, rank, microbatch)
+(``dropout_rng``), as the JAX DP step folds the rank and the step into its
+dropout key and ``accumulated_grads`` the microbatch index, so a resumed
+run drops what an unbroken one would and no two ranks or microbatches
+drop the same positions.
+
+Token models under ``dp`` are the JAX package's ``make_gspmd_train_step``
+on a mesh with only the data axis: one logical step over the global
+batch, whose loss is the mean over the global batch's scored tokens (the
+masked positions of BERT, the predicted real tokens of a causal LM), not
+the mean of the ranks' means. So each microbatch's counts are summed over
+the ranks (one small all-reduce a step, before any forward), each rank
+backpropagates its sum of token losses over that global count times the
+world size, and the gradients' sum all-reduce followed by the division by
+the world size gives the gradient of the global mean; the reported loss is
+that global mean. Microbatch i is rows i of each rank's shard (the
+shard-local grouping, ``split_microbatches`` on each rank): the grouping
+the comment in JAX's ``make_gspmd_train_step`` reports GSPMD realised,
+though JAX's step on a CPU mesh takes consecutive rows of the global
+batch. The two differ only under both ``dp`` and accumulation, when the
+microbatches' counts differ. Image losses are per-example means over
+equal shards, so their ranks' mean is the global mean already.
 
 A step, in the JAX step's order:
 
@@ -67,7 +86,7 @@ from distributeddeeplearning_tpu_torch.parallel import collectives
 from distributeddeeplearning_tpu_torch.parallel.process_group import (
     DataParallel)
 from distributeddeeplearning_tpu_torch.train.losses import (
-    causal_lm_loss, causal_lm_loss_sums, mlm_loss, mlm_loss_sums,
+    causal_lm_loss_sums, causal_lm_weights, mlm_loss_sums,
     smoothed_softmax_ce, top1_accuracy)
 from distributeddeeplearning_tpu_torch.train.optim import (
     Schedule, clip_by_global_norm_)
@@ -76,11 +95,17 @@ from distributeddeeplearning_tpu_torch.train.state import TrainState
 _DROPOUT_STREAM = 1  # keeps dropout draws apart from the data's
 
 
-def dropout_rng(seed: int, step: int) -> torch.Generator:
+def dropout_rng(seed: int, step: int, rank: int = 0,
+                micro: int = 0) -> torch.Generator:
     """The CPU generator every dropout site of step ``step`` draws its seed
-    from."""
+    from, on rank ``rank``'s microbatch ``micro``. Rank 0's microbatch 0
+    draws from the generator of (seed, step) alone, which a one-card step
+    without accumulation has always used; any other rank or microbatch
+    folds both into the seed, as the JAX step folds the rank index and
+    ``accumulated_grads`` the microbatch index into the key."""
+    fold = () if rank == 0 and micro == 0 else (rank, micro)
     return torch.Generator().manual_seed(
-        step_seed(seed, step, _DROPOUT_STREAM))
+        step_seed(seed, step, _DROPOUT_STREAM, *fold))
 
 
 def init_loss_scale(config: TrainConfig, device) -> Optional[dict]:
@@ -177,12 +202,24 @@ def mlm_labels(batch: dict):
     return batch.get("masked_labels", batch.get("labels"))
 
 
+def token_count(batch: dict, mlm: bool) -> torch.Tensor:
+    """The positions a token loss scores in ``batch``, as a float32 scalar
+    on its device: the masked-LM targets, or the causal LM's predictions
+    whose query and target are both real tokens. Known before the
+    forward."""
+    if mlm:
+        return (mlm_labels(batch) >= 0).float().sum()
+    return causal_lm_weights(batch["input_ids"],
+                             batch.get("attention_mask")).sum()
+
+
 def make_train_step(config: TrainConfig, schedule: Schedule,
                     dp: Optional[DataParallel] = None
                     ) -> Callable[[TrainState, dict], dict]:
     """``train_step(state, batch) -> {"loss", "lr", ...}``: one step of
     ``state`` in place on ``batch`` (this rank's shard under ``dp``).
-    ``loss`` (unscaled, averaged over microbatches and ranks) and
+    ``loss`` (unscaled, averaged over microbatches and ranks; a token
+    model's is each microbatch's mean over every rank's scored tokens) and
     ``accuracy`` (image models) stay device tensors; ``lr`` is the rate of
     this step's update (of the update it would have made, when skipped).
     With loss scaling the metrics add ``loss_scale`` and
@@ -197,12 +234,16 @@ def make_train_step(config: TrainConfig, schedule: Schedule,
     guard = config.bad_step_guard
     accum = max(config.grad_accum_steps, 1)
     options = allreduce_options(config)
+    mlm = spec.objective == "mlm"
+    rank = 0 if dp is None else dp.rank
 
-    def forward(model, step: int, batch: dict) -> dict:
+    def forward(model, step: int, batch: dict, micro: int, count) -> dict:
+        """The microbatch ``micro``'s loss: an image model's mean, or a
+        token model's sum over ``count``, the microbatch's scored
+        positions over every rank (times the world size under ``dp``)."""
         if image:
-            # A ViT's dropout draws from the step's generator; a CNN has
-            # no dropout.
-            kw = ({"rng": dropout_rng(config.seed, step)}
+            # A ViT's dropout draws from the generator; a CNN has none.
+            kw = ({"rng": dropout_rng(config.seed, step, rank, micro)}
                   if takes_rng(model) else {})
             logits = model(batch["image"], **kw)
             return {"loss": smoothed_softmax_ce(logits, batch["label"],
@@ -210,22 +251,35 @@ def make_train_step(config: TrainConfig, schedule: Schedule,
                     "accuracy": top1_accuracy(logits.detach(),
                                               batch["label"])}
         ids, mask = batch["input_ids"], batch.get("attention_mask")
-        rng = dropout_rng(config.seed, step)
-        if spec.objective == "mlm":
+        rng = dropout_rng(config.seed, step, rank, micro)
+        if mlm:
             logits = model(ids, attention_mask=mask, rng=rng,
                            **gather_head(batch))
-            return {"loss": mlm_loss(logits, mlm_labels(batch))}
-        logits = model(ids, attention_mask=mask, rng=rng)
-        return {"loss": causal_lm_loss(logits, ids, mask)}
+            total, _ = mlm_loss_sums(logits, mlm_labels(batch))
+        else:
+            logits = model(ids, attention_mask=mask, rng=rng)
+            total, _ = causal_lm_loss_sums(logits, ids, mask)
+        loss = total / count
+        return {"loss": loss if dp is None else loss * dp.world}
+
+    def token_counts(micros: list) -> list:
+        """Each microbatch's scored positions, summed over the ranks under
+        ``dp`` (one all-reduce of ``accum`` floats), clamped at 1."""
+        counts = torch.stack([token_count(m, mlm) for m in micros])
+        if dp is not None:
+            collectives.psum_(counts)
+        return list(counts.clamp_min(1.0))
 
     def accumulated_grads(state: TrainState, batch: dict) -> dict:
         """Backward on each microbatch's loss (times the scale), summed
         into ``.grad`` and divided once; the metrics' mean."""
         model = state.model
         scale = state.loss_scale["scale"] if scaling else None
+        micros = split_microbatches(batch, accum)
+        counts = [None] * accum if image else token_counts(micros)
         outs = []
-        for micro in split_microbatches(batch, accum):
-            metrics = forward(model, state.step, micro)
+        for i, (micro, count) in enumerate(zip(micros, counts)):
+            metrics = forward(model, state.step, micro, i, count)
             loss = metrics["loss"]
             (loss * scale if scaling else loss).backward()
             outs.append({k: v.detach() for k, v in metrics.items()})
@@ -341,13 +395,15 @@ def make_eval_step(config: TrainConfig, dp: Optional[DataParallel] = None
     return eval_step
 
 
-def make_token_eval_step(config: TrainConfig, objective: str = "causal"
+def make_token_eval_step(config: TrainConfig, objective: str = "causal",
+                         dp: Optional[DataParallel] = None
                          ) -> Callable[[TrainState, dict], dict]:
     """Held-out LM loss: ``eval_step(state, batch) -> {"loss_sum",
     "count"}``, masked-LM sums for the ``mlm`` objective (BERT) and
     causal-LM sums otherwise, as JAX ``make_token_eval_step`` takes them,
     with dropout off and, when kept, the EMA parameters, so the mean over
-    any number of batches is exact."""
+    any number of batches is exact. Under ``dp`` each rank scores its rows
+    and both sums are summed over the ranks (one all-reduce)."""
     del config
     mlm = objective == "mlm"
 
@@ -360,6 +416,8 @@ def make_token_eval_step(config: TrainConfig, objective: str = "causal"
         else:
             logits = _eval_forward(state, ids, attention_mask=mask)
             total, count = causal_lm_loss_sums(logits, ids, mask)
+        if dp is not None:
+            total, count = collectives.psum_(torch.stack([total, count]))
         return {"loss_sum": total, "count": count}
 
     return eval_step

@@ -18,7 +18,9 @@ the loop and CLI on ``bert_tiny``) against the JAX package on the CPU.
   against JAX, SyntheticTokens' structure against JAX's, the weights'
   round trip through the flax tree, and the CLI training bert_tiny two
   steps on synthetic data and on token shards, with and without the gather
-  head, and refusing the MoE, pipelined, ring and ``--dp 8`` variants.
+  head, and refusing the MoE, pipelined, ring and tensor-parallel
+  (``--tp``) variants; ``--dp`` and ``--accum`` are
+  ``tests/test_torch_token_dp.py``'s.
 """
 
 import functools
@@ -370,9 +372,8 @@ def test_token_shards_reach_bert_with_their_padding(tmp_path):
 @pytest.mark.parametrize("argv,match", [
     (["--model", "bert_base_moe"], "mixture-of-experts"),
     (["--model", "bert_tiny_pp"], "pipeline"),
-    (["--config", "bert_base_mlm", "--dp", "8"], "BERT.*GSPMD"),
-    (["--config", "bert_base_mlm", "--dp", "1", "--accum", "2"],
-     "BERT.*GSPMD"),
+    (["--config", "bert_base_mlm", "--dp", "1", "--tp", "2"], "BERT.*GSPMD"),
+    (["--config", "bert_base_mlm", "--tp", "8"], "BERT.*GSPMD"),
     (["--config", "bert_base_mlm_longctx", "--dp", "1", "--sp", "1"],
      "BERT.*sequence-parallel"),
 ])

@@ -17,7 +17,10 @@ case on both ranks while JAX compiles its references here:
   the bad-step guard and under loss scaling;
 - the CLI at ``--dp 2 --sync-bn`` through checkpoints and a resume: only
   rank 0 prints, and its losses are the one-card run's on the whole batch;
-- the layout refusals of ``check_layout`` and the BatchNorm-batch warning.
+- the layout refusals of ``check_layout`` (a token model at ``--tp 2`` or
+  ``parallel.fsdp 2``: the GSPMD slice's; token models at ``--dp`` and
+  ``--accum`` are ``tests/test_torch_token_dp.py``'s) and the
+  BatchNorm-batch warning.
 """
 
 import json
@@ -223,9 +226,11 @@ def test_cli_data_parallel_run(ranks, capsys, tmp_path):
 
 
 @pytest.mark.parametrize("overrides,world,match", [
-    ({"model": "gpt_nano", "parallel": tconfig.ParallelConfig(data=2)}, 2,
+    ({"model": "gpt_nano", "parallel": tconfig.ParallelConfig(data=2,
+                                                              model=2)}, 2,
      "GSPMD"),
-    ({"model": "gpt_nano", "grad_accum_steps": 2}, None, "GSPMD"),
+    ({"model": "gpt_nano", "parallel": tconfig.ParallelConfig(fsdp=2)}, None,
+     "GSPMD"),
     ({"model": "gpt_nano", "sync_bn": True}, 1, "shard_map"),
     ({"sync_bn": True, "fused_bn": True}, 1,
      "sync_bn is not supported with fused_bn"),

@@ -15,8 +15,9 @@ CPU.
   unscaled step's bit for bit on ``resnet_nano``, plain, with ``fused_bn``
   and with ``fused_block`` + ``fused_conv3`` (the kernels' plain versions).
 - The CLI refuses what the run's layout does not carry (a preset's ``--dp
-  8`` in a world of 1, a shard that ``--accum 16`` does not split, BERT's
-  preset at its own ``--dp 8`` and its ring attention, ``--sp 4``), and
+  8`` in a world of 1, DenseNet's and BERT's, whose refusal names the
+  model's family; a shard that ``--accum 16`` does not split; BERT's ring
+  attention, ``--sp 4``), and
   runs ``--config densenet121_dp --dp 1 --precision
   mixed``.
 """

@@ -1,5 +1,6 @@
 """Spawned gloo workers for the port's data-parallel tests
-(``tests/test_torch_collectives.py``, ``tests/test_torch_dp.py``).
+(``tests/test_torch_collectives.py``, ``tests/test_torch_dp.py``,
+``tests/test_torch_token_dp.py``).
 
 This module imports only torch and the port, never JAX: a spawned
 worker imports it afresh. ``World`` starts ``world`` processes, each of
@@ -25,6 +26,7 @@ import torch
 import torch.distributed as dist
 
 from distributeddeeplearning_tpu_torch import config as tconfig
+from distributeddeeplearning_tpu_torch.models import model_spec
 from distributeddeeplearning_tpu_torch.models import resnet as tresnet
 from distributeddeeplearning_tpu_torch.parallel import collectives
 from distributeddeeplearning_tpu_torch.parallel.process_group import (
@@ -217,6 +219,112 @@ def dp_cases(rank: int, world: int, payload: dict) -> dict:
         out["cli"].append(buf.getvalue())
     return out
 
+
+
+# ---------------------------------------------------------------------------
+# Token models (and ViT) on the data axis
+# ---------------------------------------------------------------------------
+
+def build_model(cfg: tconfig.TrainConfig, build_kw: dict, weights: dict):
+    """The registry's ``cfg.model`` in float32, built with ``build_kw``
+    and loaded with ``weights`` (a state_dict of numpy arrays), training
+    mode."""
+    model = model_spec(cfg.model).build(dtype=torch.float32, **build_kw)
+    model.load_state_dict({k: torch.tensor(v) for k, v in weights.items()})
+    return model.train()
+
+
+def tensors(batch: dict) -> dict:
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def model_steps(cfg: tconfig.TrainConfig, build_kw: dict, weights: dict,
+                batches: list, dp=None) -> dict:
+    """``cfg``'s steps of ``build_model(cfg, build_kw, weights)`` on
+    ``batches`` (global batches, dicts of numpy arrays; this rank's rows of
+    each under ``dp``): each step's metrics and the parameters after it,
+    and the last step's gradients."""
+    model = build_model(cfg, build_kw, weights)
+    opt, sched = topt.make_optimizer(cfg.optimizer, model,
+                                     cfg.global_batch_size, len(batches))
+    state = TrainState(step=0, model=model, optimizer=opt,
+                       loss_scale=tsteps.init_loss_scale(cfg, "cpu"))
+    step = tsteps.make_train_step(cfg, sched, dp)
+    out: dict = {"metrics": [], "params": []}
+    for batch in batches:
+        batch = tensors(batch)
+        if dp is not None:
+            batch = dp.shard(batch)
+        out["metrics"].append({k: float(v)
+                               for k, v in step(state, batch).items()})
+        out["params"].append({n: p.detach().numpy().copy()
+                              for n, p in model.named_parameters()})
+    out["grads"] = {n: p.grad.numpy().copy()
+                    for n, p in model.named_parameters()}
+    return out
+
+
+def dropout_masks(cfg: tconfig.TrainConfig, build_kw: dict, weights: dict,
+                  batch: dict, dp=None) -> list:
+    """The keep masks of every dropout site of BERT's residual stream (the
+    embeddings' first) in one step of ``model_steps``, in call order."""
+    from distributeddeeplearning_tpu_torch.models import bert as tbert
+
+    masks = []
+    real = tbert.dropout
+
+    def recording(x, rate, rng):
+        out = real(x, rate, rng)
+        if rng is not None and rate:
+            masks.append((out != 0).numpy())
+        return out
+
+    tbert.dropout = recording
+    try:
+        model_steps(cfg, build_kw, weights, [batch], dp)
+    finally:
+        tbert.dropout = real
+    return masks
+
+
+def token_eval(cfg: tconfig.TrainConfig, build_kw: dict, weights: dict,
+               batch: dict, dp=None) -> tuple[float, float]:
+    """(loss sum, count) of the token eval step on ``batch`` (this rank's
+    rows under ``dp``, the sums over the ranks)."""
+    model = build_model(cfg, build_kw, weights)
+    state = TrainState(step=0, model=model, optimizer=None)
+    evaluate = tsteps.make_token_eval_step(
+        cfg, model_spec(cfg.model).objective, dp)
+    batch = tensors(batch)
+    out = evaluate(state, batch if dp is None else dp.shard(batch))
+    return float(out["loss_sum"]), float(out["count"])
+
+
+def token_dp_cases(rank: int, world: int, payload: dict) -> dict:
+    """Every case of ``tests/test_torch_token_dp.py`` on this rank:
+    ``payload["cases"]`` maps a name to (config overrides, build kwargs,
+    weights, batches) for ``model_steps``, ``payload["eval"]`` a name to
+    (overrides, build kwargs, weights, batch) for ``token_eval``,
+    ``payload["dropout"]`` holds one such tuple for ``dropout_masks`` and
+    ``payload["cli"]`` a CLI run's arguments."""
+    dp = DataParallel(rank, world)
+    out: dict = {}
+    for name, (overrides, build_kw, weights, batches) in (
+            payload["cases"].items()):
+        out[name] = model_steps(nano_config(world, **overrides), build_kw,
+                                weights, batches, dp)
+    out["eval"] = {name: token_eval(nano_config(world, **overrides),
+                                    build_kw, weights, batch, dp)
+                   for name, (overrides, build_kw, weights, batch) in (
+                       payload["eval"].items())}
+    overrides, build_kw, weights, batch = payload["dropout"]
+    out["dropout"] = dropout_masks(nano_config(world, **overrides), build_kw,
+                                   weights, batch, dp)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        tcli.main(payload["cli"])
+    out["cli"] = buf.getvalue()
+    return out
 
 
 # ---------------------------------------------------------------------------
