@@ -183,7 +183,25 @@ Run from the root of a checkout. Phases:
    ``--accum 1`` on the same batch: the loss within 1e-5 and every
    gradient within 1e-4 of its tensor's largest |ref| (floored at 1e-4 of
    the largest of all). A world above 1 is held on the CPU with gloo only
-   (``tests/test_torch_token_dp.py``).
+   (``tests/test_torch_token_dp.py``);
+29. serving: ``python -m distributeddeeplearning_tpu_torch.serve`` with
+   GPT-2 small uncut in float32 (seeded weights as a flax-layout ``.npz``),
+   32 slots, 1024 pages of 16 tokens (1.21 GB of pools), prefill buckets
+   64-512 and the radix prefix cache, over 48 requests made from the seed
+   (prompts of 32-512 tokens, 8-64 new tokens, arrivals over the first
+   second, half of them behind one 256-token head); exit 0, every request
+   finished, the leak check held, at least one prefix hit and one copy on
+   write, no kernel of the port launched; each request's tokens equal to
+   ``generate(use_cache=True)`` of it alone, or parted at a tie (the
+   reference's top two logits within 1e-4 of its largest |logit|, printed
+   with its gap); tokens/s, TTFT and inter-token p50/p99, peak memory, the
+   largest page occupancy, the engine's counters and a device-time profile
+   of the decode step at 32 live slots. Then the preemption run on
+   TinyLlama-1.1B's widths at 2 layers (the JAX engine test's shape: a
+   tenant's page cap tightened mid-run, a starved request): at least one
+   preemption, both requests equal to ``generate(use_cache=True)``. The
+   serve path runs no kernel of its own: its paged attention is plain
+   PyTorch, as the JAX engine's is jnp code.
 
 Each phase prints its wall seconds. It prints a ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, "device": {...}}``. Any failed phase exits
@@ -3263,6 +3281,230 @@ def phase_accum_step(failures) -> None:
     torch.cuda.empty_cache()
 
 
+# Serving (phase 29): GPT-2 small uncut in float32 through the engine's
+# entry point, 48 requests from the seed: prompts of 32-512 tokens, 8-64 new
+# tokens each, arrivals over the first SERVE_ARRIVAL_S seconds (the whole
+# run takes a few seconds), half of them behind one 256-token head (16 full
+# pages: later ones hit the radix tree; two whose prompt is the head alone
+# reuse 255 of its tokens and copy the trailing page on write).
+SERVE_CONFIG = {"model": "gpt2_small", "vocab_size": VOCAB,
+                "dtype": "float32", "max_slots": 32, "page_size": 16,
+                "max_pages_per_slot": 64, "num_pages": 1024,
+                "prefill_buckets": [64, 128, 256, 512], "prefix_cache": True,
+                "seed": SEED}
+SERVE_REQUESTS, SERVE_HEAD, SERVE_ARRIVAL_S = 48, 256, 1.0
+# A request's greedy tokens must equal generate(use_cache=True) of it alone;
+# they may part only at a step where the reference's top two logits lie
+# within this share of its largest |logit| (a tie: f32 sums in another
+# order, batch 32 against 1, may pick the other).
+SERVE_TIE_TOL = 1e-4
+# The preemption run (the shape of the JAX engine's test): TinyLlama-1.1B's
+# widths at 2 layers, 16-token pages; "bg" holds 12 pages (64 + 128 tokens)
+# of 24, its cap drops to 8, and "rt" (128 + 128 tokens, 16 pages) starves.
+PREEMPT_CONFIG = {"model": "tinyllama_1b", "vocab_size": 32000,
+                  "dtype": "float32", "max_slots": 2, "page_size": 16,
+                  "max_pages_per_slot": 16, "num_pages": 24,
+                  "prefill_buckets": [64, 128, 256], "seed": SEED}
+
+
+def serve_traffic(rng) -> list[dict]:
+    """The phase's requests: every other one behind the shared head, the
+    others of SERVE_HEAD / 8 to 2 SERVE_HEAD tokens."""
+    vocab = SERVE_CONFIG["vocab_size"]
+    head = rng.integers(0, vocab, SERVE_HEAD).tolist()
+    arrivals = np.sort(rng.uniform(0.0, SERVE_ARRIVAL_S, SERVE_REQUESTS))
+    requests = []
+    for i in range(SERVE_REQUESTS):
+        if i % 2:
+            plen = int(rng.integers(SERVE_HEAD // 8, 2 * SERVE_HEAD + 1))
+            prompt = rng.integers(0, vocab, plen).tolist()
+        else:
+            tail = (0 if i in (6, 14)
+                    else int(rng.integers(1, SERVE_HEAD + 1)))
+            prompt = head + rng.integers(0, vocab, tail).tolist()
+        requests.append({"prompt": prompt,
+                         "max_new_tokens": int(rng.integers(8, 65)),
+                         "arrival_s": float(arrivals[i])})
+    return requests
+
+
+def greedy_check(model, prompt, tokens, max_new: int) -> dict:
+    """``tokens`` against ``generate(use_cache=True)`` of the prompt alone:
+    where they part, the reference's logits at that step (its cached decode
+    replayed) must hold a tie within SERVE_TIE_TOL."""
+    import torch
+
+    from distributeddeeplearning_tpu_torch.models.generate import generate
+
+    ref = generate(model, [prompt], max_new_tokens=max_new,
+                   use_cache=True)[0, len(prompt):].tolist()
+    if tokens == ref:
+        return {"same": True}
+    j = next((i for i, (a, b) in enumerate(zip(tokens, ref)) if a != b),
+             min(len(tokens), len(ref)))
+    if j >= min(len(tokens), len(ref)):
+        return {"same": False, "step": j, "tie": False,
+                "why": f"{len(tokens)} tokens, reference {len(ref)}"}
+    cache = model.init_cache(1)
+    ids = torch.as_tensor([prompt + ref[:j]],
+                          device=next(model.parameters()).device)
+    with torch.inference_mode():
+        logits = model(ids[:, :len(prompt)], cache=cache)[0, -1]
+        for t in range(len(prompt), ids.shape[1]):
+            logits = model(ids[:, t:t + 1], cache=cache)[0, -1]
+    top = torch.topk(logits, 2).values
+    gap = float(top[0] - top[1])
+    limit = SERVE_TIE_TOL * float(logits.abs().max())
+    return {"same": False, "step": j, "gap": gap, "limit": limit,
+            "tie": gap <= limit and tokens[j] in torch.topk(
+                logits, 2).indices.tolist()}
+
+
+def phase_serve(kernels, failures, scratch: Path) -> dict:
+    """Phase 29: GPT-2 small served through ``python -m
+    distributeddeeplearning_tpu_torch.serve``, every request held against
+    ``generate(use_cache=True)`` of it alone; the decode step's profile;
+    the preemption run on TinyLlama-1.1B's widths at 2 layers."""
+    import torch
+
+    from distributeddeeplearning_tpu_torch import generate as gen_cli
+    from distributeddeeplearning_tpu_torch.serve import cli as serve_cli
+    from distributeddeeplearning_tpu_torch.serve.engine import (
+        Engine, ServeConfig)
+    from distributeddeeplearning_tpu_torch.utils.weights import (
+        params_from_flax)
+
+    name = SERVE_CONFIG["model"]
+    npz = scratch / "serve_params.npz"
+    np.savez(npz, **seeded_flax_params(
+        name, SEED, vocab_size=SERVE_CONFIG["vocab_size"]))
+    requests = serve_traffic(np.random.default_rng(SEED + 29))
+    (scratch / "serve_requests.json").write_text(json.dumps(requests))
+    (scratch / "serve_config.json").write_text(json.dumps(SERVE_CONFIG))
+    out_path = scratch / "serve_out.json"
+    reset_counts(kernels)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = serve_cli.main([
+            "--serve", str(scratch / "serve_requests.json"),
+            "--serve-config", str(scratch / "serve_config.json"),
+            "--serve-out", str(out_path), "--params", str(npz)])
+    torch.cuda.synchronize()
+    launches = read_counts(kernels)
+    log(buf.getvalue().strip().splitlines()[-1])
+    out = json.loads(out_path.read_text())
+    counters = out["counters"]
+    record = {key: out[key] for key in (
+        "window_s", "tokens_emitted", "tokens_per_s", "ttft_s", "itl_s",
+        "peak_memory_gb", "max_pages_in_use", "max_page_occupancy",
+        "pool_bytes", "warmup_s", "leak_check_ok")}
+    record["counters"] = counters
+    record["last_arrival_s"] = requests[-1]["arrival_s"]
+    log(f"# serve {name} (f32, {len(requests)} requests, "
+        f"{SERVE_CONFIG['max_slots']} slots, {SERVE_CONFIG['num_pages']} "
+        f"pages of {SERVE_CONFIG['page_size']}): " + json.dumps(record))
+    if rc != 0 or not out["leak_check_ok"]:
+        failures.append(f"serve entry point exited {rc}, leak check "
+                        f"{out['leak_check_ok']}")
+    if any(launches.values()):
+        failures.append(f"the serve path launched kernels of the port: "
+                        f"{launches}")
+    if counters["prefix_hits"] < 1 or counters["cow_copies"] < 1:
+        failures.append(f"serve prefix cache: {counters['prefix_hits']} "
+                        f"hits, {counters['cow_copies']} copies on write")
+
+    model = gen_cli.load_model(name, str(npz), attn="dense")
+    same, ties = 0, []
+    for uid, req in enumerate(requests):
+        res = out["results"][str(uid)]
+        if not res["finished"]:
+            failures.append(f"serve request {uid} did not finish: "
+                            f"{res['failed']}")
+            continue
+        check = greedy_check(model, req["prompt"], res["tokens"],
+                             req["max_new_tokens"])
+        if check["same"]:
+            same += 1
+        elif check["tie"]:
+            ties.append({"uid": uid, **check})
+        else:
+            failures.append(f"serve request {uid} parts from generate("
+                            f"use_cache=True): {check}")
+    log(f"# serve {name}: {same}/{len(requests)} requests token for "
+        f"token equal to generate(use_cache=True); ties: "
+        + json.dumps(ties))
+
+    # The decode step at 32 live slots: the first 32 requests admitted
+    # into a fresh engine, then one paged decode forward profiled.
+    engine = Engine(ServeConfig.from_dict(SERVE_CONFIG), state_dict=(
+        params_from_flax(dict(np.load(npz)))))
+    for req in requests[:SERVE_CONFIG["max_slots"]]:
+        engine.submit(req["prompt"], max_new_tokens=req["max_new_tokens"])
+    engine.step()
+    live = engine.num_live
+    profile = step_profile(f"serve {name} decode step ({live} slots)",
+                           engine._run_decode,
+                           focus=("gemm", ("gemm", "gemv", "cutlass",
+                                           "xmma", "nvjet")))
+    record["decode_profile"] = profile
+    del engine, model
+    torch.cuda.empty_cache()
+    record["preemption"] = phase_serve_preemption(failures)
+    return record
+
+
+def phase_serve_preemption(failures) -> dict:
+    """The preemption run: a tenant's page cap tightened mid-run, then a
+    starved request; the victim re-queues with its tokens folded in, and
+    both must equal generate(use_cache=True) (TinyLlama-1.1B's widths at 2
+    layers through the paged branch, the dense prefill path)."""
+    import torch
+
+    from distributeddeeplearning_tpu_torch.models import get_model
+    from distributeddeeplearning_tpu_torch.serve.engine import (
+        Engine, ServeConfig)
+    from distributeddeeplearning_tpu_torch.serve.scheduler import (
+        TenantPolicy)
+    from distributeddeeplearning_tpu_torch.utils.weights import (
+        params_from_flax)
+
+    config = ServeConfig.from_dict(PREEMPT_CONFIG)
+    state = params_from_flax(seeded_flax_params(
+        config.model, SEED + 29, num_layers=2, vocab_size=config.vocab_size))
+    model = get_model(config.model, dtype=torch.float32, num_layers=2,
+                      vocab_size=config.vocab_size,
+                      decode_cache_len=config.slot_capacity)
+    engine = Engine(config, model=model, state_dict=state)
+    rng = np.random.default_rng(SEED + 31)
+    bg_prompt = rng.integers(0, config.vocab_size, 64).tolist()
+    rt_prompt = rng.integers(0, config.vocab_size, 128).tolist()
+    bg = engine.submit(bg_prompt, max_new_tokens=128, tenant="bg")
+    engine.step()
+    engine.step()
+    engine.scheduler.policies["bg"] = TenantPolicy("bg", max_pages=8)
+    rt = engine.submit(rt_prompt, max_new_tokens=128, tenant="rt")
+    engine.step()
+    preempted = engine.preemptions
+    del engine.scheduler.policies["bg"]
+    engine.run_until_idle()
+    engine.shutdown()
+    record = {"preemptions": engine.preemptions, "steps": engine.steps,
+              "bg_preemptions": bg.preemptions}
+    for name, req in (("bg", bg), ("rt", rt)):
+        record[name] = greedy_check(engine.model, req.prompt, req.tokens,
+                                    req.max_new_tokens)
+        if not (record[name]["same"] or record[name]["tie"]):
+            failures.append(f"preemption run: {name} parts from generate("
+                            f"use_cache=True): {record[name]}")
+    log(f"# serve preemption run ({config.model} widths x 2 layers, f32): "
+        + json.dumps(record))
+    if preempted < 1 or bg.preemptions < 1:
+        failures.append(f"preemption run: {preempted} preemptions")
+    del engine, model
+    torch.cuda.empty_cache()
+    return record
+
+
 def main() -> int:
     import torch
 
@@ -3402,6 +3644,7 @@ def main() -> int:
         timed("token_dp_vs_one_card_step", phase_token_dp_bitwise, failures,
               scratch)
         timed("accum_vs_one_step", phase_accum_step, failures)
+        timed("serve", phase_serve, kernels, failures, scratch)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     log(f"# total: {time.perf_counter() - t_start:.2f} s")

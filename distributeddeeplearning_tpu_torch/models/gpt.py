@@ -5,13 +5,16 @@ residual blocks, learned positions, tanh-GELU MLP, LM head tied to ``wte``,
 f32 logits. Module and parameter names follow the flax tree, so
 ``utils/weights.py`` carries a JAX checkpoint across by renaming alone.
 
-Two modes: the full sequence (``attention_impl`` dense or flash, causal over
-a key-padding mask) and dense KV-cache decoding (``cache=``, see
-models/decode_cache.py). Parameters are float32 masters; activations run in
-the compute ``dtype`` (models/layers.py), as flax's ``param_dtype=float32,
-dtype=...``. In training mode (``model.train()``) the embedding, both
-residual branches and the attention probabilities take dropout at
-``dropout_rate``, with randomness drawn from ``rng=``.
+Three modes: the full sequence (``attention_impl`` dense or flash, causal
+over a key-padding mask), dense KV-cache decoding (``cache=``, see
+models/decode_cache.py) and paged decoding for the serve engine (``paged=``
+a slot table and ``pools=`` its page pools, see serve/kv_cache.py), where
+every row is a serve slot at its own position. Parameters are float32
+masters; activations run in the compute ``dtype`` (models/layers.py), as
+flax's ``param_dtype=float32, dtype=...``. In training mode
+(``model.train()``) the embedding, both residual branches and the
+attention probabilities take dropout at ``dropout_rate``, with randomness
+drawn from ``rng=``.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from distributeddeeplearning_tpu_torch.models.layers import (
     Dense, LayerNorm, dropout, training_rng)
 from distributeddeeplearning_tpu_torch.ops.attention import (
     multihead_attention)
+from distributeddeeplearning_tpu_torch.serve import kv_cache as paged_kv
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,14 +66,18 @@ class CausalSelfAttention(nn.Module):
         self.output = Dense(h, h, dtype)
 
     def forward(self, x, pad_mask, *, cache: Optional[KVCache] = None,
-                layer: int = 0, rng: Optional[torch.Generator] = None):
+                layer: int = 0, rng: Optional[torch.Generator] = None,
+                paged=None, pools=None):
         cfg = self.cfg
         b, s, _ = x.shape
         shape = (b, s, cfg.num_heads, cfg.head_dim)
         q = self.query(x).view(shape)
         k = self.key(x).view(shape)
         v = self.value(x).view(shape)
-        if cache is not None:
+        if paged is not None:
+            out = paged_kv.paged_attention(q, k, v, pools.keys[layer],
+                                           pools.values[layer], paged)
+        elif cache is not None:
             # Decode: the block attends over the live cache prefix. The
             # finfo.min fill (not -inf) keeps padded rows finite, as in JAX.
             keys, values = cache.append(layer, k, v)
@@ -103,9 +111,10 @@ class DecoderBlock(nn.Module):
         self.mlp_out = Dense(cfg.intermediate_size, h, dtype)
 
     def forward(self, x, pad_mask, *, cache: Optional[KVCache] = None,
-                layer: int = 0, rng: Optional[torch.Generator] = None):
+                layer: int = 0, rng: Optional[torch.Generator] = None,
+                paged=None, pools=None):
         h = self.attention(self.ln1(x), pad_mask, cache=cache, layer=layer,
-                           rng=rng)
+                           rng=rng, paged=paged, pools=pools)
         x = x + dropout(h, self.rate, rng)
         # GPT-2 uses the tanh approximation.
         h = F.gelu(self.mlp_in(self.ln2(x)), approximate="tanh")
@@ -147,27 +156,41 @@ class GptLM(nn.Module):
 
     def forward(self, input_ids, attention_mask=None, *,
                 cache: Optional[KVCache] = None,
-                rng: Optional[torch.Generator] = None):
+                rng: Optional[torch.Generator] = None,
+                paged=None, pools=None):
         """``rng``: the CPU generator the dropout sites draw from, required
-        in training mode with a positive ``dropout_rate``."""
+        in training mode with a positive ``dropout_rate``. ``paged``: a
+        ``PagedState`` (one token a slot) or ``PagedBlockState`` over
+        ``pools``, in place of ``cache``."""
         cfg = self.cfg
-        rng = training_rng(self, cfg.dropout_rate, rng)
         b, s = input_ids.shape
-        start = cache.index if cache is not None else 0
-        if start + s > cfg.max_position:
-            raise ValueError(
-                f"positions up to {start + s} exceed max_position "
-                f"{cfg.max_position}; build the model with seq_len="
-                f"{start + s}")
+        if paged is not None:
+            paged_kv.check_paged_call(self, s, paged, pools, cache)
+            # Every slot sits at its own position: (B, s) rows of the
+            # position table (block columns past n_new are garbage whose
+            # lookup is clamped).
+            pos = paged.lengths[:, None] + torch.arange(
+                s, device=input_ids.device)[None]
+            if isinstance(paged, paged_kv.PagedBlockState):
+                pos = pos.clamp(0, cfg.max_position - 1)
+        else:
+            start = cache.index if cache is not None else 0
+            if start + s > cfg.max_position:
+                raise ValueError(
+                    f"positions up to {start + s} exceed max_position "
+                    f"{cfg.max_position}; build the model with seq_len="
+                    f"{start + s}")
+            pos = torch.arange(start, start + s, device=input_ids.device)
+        rng = training_rng(self, cfg.dropout_rate, rng)
         pad_mask = (None if attention_mask is None
                     else attention_mask.bool())
-        pos = torch.arange(start, start + s, device=input_ids.device)
         # Summed in f32, then cast, as the JAX model does.
         x = (F.embedding(input_ids, self.wte)
              + F.embedding(pos, self.wpe)).to(self.compute_dtype)
         x = dropout(x, cfg.dropout_rate, rng)
         for i, block in enumerate(self.layers):
-            x = block(x, pad_mask, cache=cache, layer=i, rng=rng)
+            x = block(x, pad_mask, cache=cache, layer=i, rng=rng,
+                      paged=paged, pools=pools)
         if cache is not None:
             cache.advance(s)
         x = self.ln_f(x)

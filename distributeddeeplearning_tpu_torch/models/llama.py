@@ -8,7 +8,9 @@ flax tree (``utils/weights.py``).
 Full-sequence mode repeats each KV head over its query group for the shared
 attention impls (outside the flash kernels, so autograd sums each group's
 K/V gradients); decode mode caches K/V at kv-head width (the GQA saving)
-and attends with a grouped einsum. Parameters are float32 masters and
+and attends with a grouped einsum; paged mode (``paged=`` and ``pools=``,
+serve/kv_cache.py) rotates each serve slot at its own positions and
+attends over its pages. Parameters are float32 masters and
 activations run in the compute ``dtype`` (models/layers.py). In training
 mode the residual branches and attention probabilities take dropout at
 ``dropout_rate`` (0 by default, the Llama recipe), drawn from ``rng=``.
@@ -29,6 +31,7 @@ from distributeddeeplearning_tpu_torch.models.layers import (
     Dense, dropout, training_rng)
 from distributeddeeplearning_tpu_torch.ops.attention import (
     multihead_attention)
+from distributeddeeplearning_tpu_torch.serve import kv_cache as paged_kv
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,17 +71,24 @@ class RMSNorm(nn.Module):
                       * self.weight.float())).to(x.dtype)
 
 
-def apply_rope(x, *, theta: float, offset: int = 0):
+def apply_rope(x, *, theta: float, offset: int = 0,
+               positions: Optional[torch.Tensor] = None):
     """Rotary embedding, half-split (rotate_half) convention: x (B, S, H, D)
-    rotated by (offset + index) along dim 1. The rotation runs in f32
-    whatever the storage dtype."""
+    rotated by (offset + index) along dim 1, or by ``positions``, a (B, S)
+    tensor when every row sits at its own position (paged decode: each
+    serve slot's length). Both give the same angles where they meet. The
+    rotation runs in f32 whatever the storage dtype."""
     b, s, h, d = x.shape
     freqs = 1.0 / (theta ** (torch.arange(0, d, 2, dtype=torch.float32,
                                           device=x.device) / d))
-    pos = offset + torch.arange(s, dtype=torch.float32, device=x.device)
-    ang = pos[:, None] * freqs                  # (S, D/2)
-    cos = torch.cos(ang)[None, :, None, :]
-    sin = torch.sin(ang)[None, :, None, :]
+    pos = (positions.float() if positions is not None
+           else offset + torch.arange(s, dtype=torch.float32,
+                                      device=x.device))
+    ang = pos[..., None] * freqs                # (S, D/2) or (B, S, D/2)
+    if ang.dim() == 2:
+        ang = ang[None]                         # shared across the batch
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
     xf = x.float()
     x1, x2 = xf[..., : d // 2], xf[..., d // 2:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
@@ -96,7 +106,8 @@ class LlamaAttention(nn.Module):
         self.o_proj = Dense(cfg.num_heads * d, h, dtype, bias=False)
 
     def forward(self, x, pad_mask, *, cache: Optional[KVCache] = None,
-                layer: int = 0, rng: Optional[torch.Generator] = None):
+                layer: int = 0, rng: Optional[torch.Generator] = None,
+                paged=None, pools=None):
         cfg = self.cfg
         b, s, _ = x.shape
         d, kvh = cfg.head_dim, cfg.num_kv_heads
@@ -104,6 +115,14 @@ class LlamaAttention(nn.Module):
         q = self.q_proj(x).view(b, s, cfg.num_heads, d)
         k = self.k_proj(x).view(b, s, kvh, d)
         v = self.v_proj(x).view(b, s, kvh, d)
+        if paged is not None:
+            # Each slot rotates at its own absolute positions before its
+            # K/V go into the pool, as the dense branch does before caching.
+            pos = paged.lengths[:, None] + torch.arange(s, device=x.device)
+            q = apply_rope(q, theta=cfg.rope_theta, positions=pos)
+            k = apply_rope(k, theta=cfg.rope_theta, positions=pos)
+            return self.o_proj(paged_kv.paged_attention(
+                q, k, v, pools.keys[layer], pools.values[layer], paged))
         # Decode rotates at absolute positions (the cache index) before
         # caching.
         offset = cache.index if cache is not None else 0
@@ -147,9 +166,10 @@ class LlamaBlock(nn.Module):
         self.down_proj = Dense(f, h, dtype, bias=False)
 
     def forward(self, x, pad_mask, *, cache: Optional[KVCache] = None,
-                layer: int = 0, rng: Optional[torch.Generator] = None):
+                layer: int = 0, rng: Optional[torch.Generator] = None,
+                paged=None, pools=None):
         h = self.attention(self.attention_norm(x), pad_mask, cache=cache,
-                           layer=layer, rng=rng)
+                           layer=layer, rng=rng, paged=paged, pools=pools)
         x = x + dropout(h, self.rate, rng)
         h = self.mlp_norm(x)
         h = self.down_proj(F.silu(self.gate_proj(h)) * self.up_proj(h))
@@ -190,15 +210,22 @@ class LlamaLM(nn.Module):
 
     def forward(self, input_ids, attention_mask=None, *,
                 cache: Optional[KVCache] = None,
-                rng: Optional[torch.Generator] = None):
+                rng: Optional[torch.Generator] = None,
+                paged=None, pools=None):
         """``rng``: the CPU generator the dropout sites draw from, required
-        in training mode with a positive ``dropout_rate``."""
+        in training mode with a positive ``dropout_rate``. ``paged``: a
+        ``PagedState`` (one token a slot) or ``PagedBlockState`` over
+        ``pools``, in place of ``cache``."""
+        if paged is not None:
+            paged_kv.check_paged_call(self, input_ids.shape[1], paged, pools,
+                                      cache)
         rng = training_rng(self, self.cfg.dropout_rate, rng)
         pad_mask = (None if attention_mask is None
                     else attention_mask.bool())
         x = F.embedding(input_ids, self.embed_tokens).to(self.compute_dtype)
         for i, block in enumerate(self.layers):
-            x = block(x, pad_mask, cache=cache, layer=i, rng=rng)
+            x = block(x, pad_mask, cache=cache, layer=i, rng=rng,
+                      paged=paged, pools=pools)
         if cache is not None:
             cache.advance(input_ids.shape[1])
         return self.lm_head(self.final_norm(x)).float()
