@@ -201,7 +201,36 @@ Run from the root of a checkout. Phases:
    tenant's page cap tightened mid-run, a starved request): at least one
    preemption, both requests equal to ``generate(use_cache=True)``. The
    serve path runs no kernel of its own: its paged attention is plain
-   PyTorch, as the JAX engine's is jnp code.
+   PyTorch, as the JAX engine's is jnp code;
+30. speculative serving: phase 29's config and requests with ``spec_k`` 4
+   and a drafter of GPT-2 small's widths at 2 layers (1024 positions,
+   weights from the seed + 1) passed to the engine (the registry's gpt_nano
+   holds 128 positions, fewer than a slot's 1024 tokens, and is refused):
+   the leak check held, no kernel launched, every request equal to
+   ``generate(use_cache=True)`` but at a tie; the speculative counters,
+   tokens/s, TTFT and inter-token p50/p99. Then the self-draft through the
+   entry point over 8 of the requests, target and drafter both the
+   registry's GPT-2 small from the config's seed (no ``--params``):
+   accepted over proposed at least 0.95, every request equal to
+   ``generate(use_cache=True)`` of the same registry model but at a tie.
+   Then the preemption run with a drafter of TinyLlama's widths at 1 layer
+   and ``spec_k`` 3: it must preempt and stay equal;
+31. traced serving: phase 29's run again with ``--serve-trace-dir``: the
+   merged trace loads with no error, every ``serve:*`` name in it is
+   registered (``serve/tracing.py``), every finished request's attribution
+   sums to its latency and its TTFT within 1 ms, no kernel launched, every
+   request equal to ``generate(use_cache=True)`` but at a tie; the p50/p99
+   of each TTFT and latency component, and tokens/s beside phase 29's
+   untraced rate (tracing's cost, not gated);
+32. beam and speculative generation: GPT-2 small in float32 through
+   ``python -m distributeddeeplearning_tpu_torch.generate``, 2 prompts x
+   64 tokens, ``--num-beams 4``, 32 new tokens, by KV cache, by dense
+   refeed and by refeed through the flash kernel (#1 launched 12 x 32 times,
+   no other kernel): the ids equal, or parted where the two candidates'
+   summed log-probabilities through the parting step lie within 1e-4 (a
+   tie, printed); then ``--draft-model gpt_nano --draft-len 4`` with seeded
+   gpt_nano weights (``--draft-params``), each prompt's ids equal to greedy
+   ``generate``'s but at a tie.
 
 Each phase prints its wall seconds. It prints a ``{"kernels": [...]}`` line
 and, last, ``{"ok": true, "device": {...}}``. Any failed phase exits
@@ -219,6 +248,16 @@ memory) with the device times of #11-#13 at the four stride-1 3x3 shapes
 layers; each checkout and each of the two in a process of its own, in
 turns (CHECKOUT, OTHER, OTHER, CHECKOUT), for a before/after comparison on
 one card.
+
+    python3 chip_smoke.py --serve-ab CHECKOUT [OTHER]
+
+runs none of that either: it serves phase 29's requests through the serve
+entry point three times with the port of CHECKOUT and of OTHER, each in a
+process of its own, in the same turns; where a checkout has them, each
+untraced run is followed by a traced run (``--serve-trace-dir``) and a
+speculative run (phase 30's drafter), so that tracing's and speculation's
+cost are read within one process. It prints each run's tokens/s, window,
+TTFT and inter-token p50/p99, and each kind's median tokens/s.
 """
 
 from __future__ import annotations
@@ -3305,6 +3344,19 @@ PREEMPT_CONFIG = {"model": "tinyllama_1b", "vocab_size": 32000,
                   "dtype": "float32", "max_slots": 2, "page_size": 16,
                   "max_pages_per_slot": 16, "num_pages": 24,
                   "prefill_buckets": [64, 128, 256], "seed": SEED}
+# Speculative serving (phase 30): proposals a round, the drafter's depth
+# (GPT-2 small's widths), the self-draft's requests and the share of its
+# proposals that must be accepted (equal weights; the drafter's paged step
+# and the verify's block sum in other orders, so a near-tie may reject);
+# the preemption run's proposals a round.
+SPEC_K, SPEC_DRAFT_LAYERS = 4, 2
+SPEC_SELF_REQUESTS, SPEC_SELF_ACCEPT_MIN = 8, 0.95
+PREEMPT_SPEC_K = 3
+# Beam search (phase 32): prompts of BEAM_PROMPT_LEN, beams, new tokens;
+# two runs may part only where the parting candidates' summed
+# log-probabilities lie within BEAM_TIE_TOL.
+BEAM_PROMPT_LEN, BEAM_WIDTH, BEAM_NEW = 64, 4, 32
+BEAM_TIE_TOL = 1e-4
 
 
 def serve_traffic(rng) -> list[dict]:
@@ -3433,6 +3485,12 @@ def phase_serve(kernels, failures, scratch: Path) -> dict:
     log(f"# serve {name}: {same}/{len(requests)} requests token for "
         f"token equal to generate(use_cache=True); ties: "
         + json.dumps(ties))
+    tied = {t["uid"] for t in ties}
+    # Phases 30 and 31 serve the same requests: a request whose tokens
+    # equal these (checked equal, not tied) needs no second reference.
+    checked = {uid: out["results"][str(uid)]["tokens"]
+               for uid in range(len(requests))
+               if out["results"][str(uid)]["finished"] and uid not in tied}
 
     # The decode step at 32 live slots: the first 32 requests admitted
     # into a fresh engine, then one paged decode forward profiled.
@@ -3450,14 +3508,19 @@ def phase_serve(kernels, failures, scratch: Path) -> dict:
     del engine, model
     torch.cuda.empty_cache()
     record["preemption"] = phase_serve_preemption(failures)
+    record["checked_tokens"] = checked
+    record["requests"] = requests
+    record["params"] = npz
     return record
 
 
-def phase_serve_preemption(failures) -> dict:
+def phase_serve_preemption(failures, spec_k: int = 0) -> dict:
     """The preemption run: a tenant's page cap tightened mid-run, then a
     starved request; the victim re-queues with its tokens folded in, and
     both must equal generate(use_cache=True) (TinyLlama-1.1B's widths at 2
-    layers through the paged branch, the dense prefill path)."""
+    layers through the paged branch, the dense prefill path). With
+    ``spec_k``, speculatively, a drafter of TinyLlama's widths at 1 layer
+    beside it (weights from SEED + 30), re-prefilled on resume."""
     import torch
 
     from distributeddeeplearning_tpu_torch.models import get_model
@@ -3468,13 +3531,24 @@ def phase_serve_preemption(failures) -> dict:
     from distributeddeeplearning_tpu_torch.utils.weights import (
         params_from_flax)
 
-    config = ServeConfig.from_dict(PREEMPT_CONFIG)
+    spec = ({"spec_draft_model": PREEMPT_CONFIG["model"], "spec_k": spec_k}
+            if spec_k else {})
+    config = ServeConfig.from_dict({**PREEMPT_CONFIG, **spec})
     state = params_from_flax(seeded_flax_params(
         config.model, SEED + 29, num_layers=2, vocab_size=config.vocab_size))
     model = get_model(config.model, dtype=torch.float32, num_layers=2,
                       vocab_size=config.vocab_size,
                       decode_cache_len=config.slot_capacity)
-    engine = Engine(config, model=model, state_dict=state)
+    draft = {}
+    if spec_k:
+        draft = {"draft_model": get_model(
+                     config.model, dtype=torch.float32, num_layers=1,
+                     vocab_size=config.vocab_size,
+                     decode_cache_len=config.slot_capacity),
+                 "draft_state_dict": params_from_flax(seeded_flax_params(
+                     config.model, SEED + 30, num_layers=1,
+                     vocab_size=config.vocab_size))}
+    engine = Engine(config, model=model, state_dict=state, **draft)
     rng = np.random.default_rng(SEED + 31)
     bg_prompt = rng.integers(0, config.vocab_size, 64).tolist()
     rt_prompt = rng.integers(0, config.vocab_size, 128).tolist()
@@ -3490,17 +3564,418 @@ def phase_serve_preemption(failures) -> dict:
     engine.shutdown()
     record = {"preemptions": engine.preemptions, "steps": engine.steps,
               "bg_preemptions": bg.preemptions}
+    if spec_k:
+        record.update(spec_rounds=engine.spec_rounds,
+                      spec_proposed=engine.spec_proposed,
+                      spec_accepted=engine.spec_accepted)
     for name, req in (("bg", bg), ("rt", rt)):
         record[name] = greedy_check(engine.model, req.prompt, req.tokens,
                                     req.max_new_tokens)
         if not (record[name]["same"] or record[name]["tie"]):
-            failures.append(f"preemption run: {name} parts from generate("
-                            f"use_cache=True): {record[name]}")
-    log(f"# serve preemption run ({config.model} widths x 2 layers, f32): "
-        + json.dumps(record))
+            failures.append(f"preemption run{' (spec)' if spec_k else ''}"
+                            f": {name} parts from generate(use_cache=True):"
+                            f" {record[name]}")
+    label = (f", drafter at 1 layer, spec_k={spec_k}" if spec_k else "")
+    log(f"# serve preemption run ({config.model} widths x 2 layers, f32"
+        f"{label}): " + json.dumps(record))
     if preempted < 1 or bg.preemptions < 1:
         failures.append(f"preemption run: {preempted} preemptions")
-    del engine, model
+    if spec_k and engine.spec_rounds < 1:
+        failures.append("preemption run: no speculative round")
+    del engine, model, draft
+    torch.cuda.empty_cache()
+    return record
+
+
+def check_served(failures, label, model, requests, results, checked) -> dict:
+    """Every request finished and equal to ``generate(use_cache=True)`` of
+    it alone but at a tie; tokens equal to ``checked`` (an earlier run's,
+    checked equal) need no second reference."""
+    same, ties = 0, []
+    for uid, req in enumerate(requests):
+        res = results[str(uid)]
+        if not res["finished"]:
+            failures.append(f"{label} request {uid} did not finish: "
+                            f"{res['failed']}")
+            continue
+        if checked.get(uid) == res["tokens"]:
+            same += 1
+            continue
+        check = greedy_check(model, req["prompt"], res["tokens"],
+                             req["max_new_tokens"])
+        if check["same"]:
+            same += 1
+        elif check["tie"]:
+            ties.append({"uid": uid, **check})
+        else:
+            failures.append(f"{label} request {uid} parts from generate("
+                            f"use_cache=True): {check}")
+    log(f"# {label}: {same}/{len(requests)} requests token for token equal "
+        f"to generate(use_cache=True); ties: " + json.dumps(ties))
+    return {"same": same, "ties": ties}
+
+
+def serve_figures(out: dict) -> dict:
+    return {key: out[key] for key in (
+        "window_s", "tokens_emitted", "tokens_per_s", "ttft_s", "itl_s",
+        "peak_memory_gb", "max_pages_in_use", "warmup_s", "leak_check_ok",
+        "counters")}
+
+
+def phase_serve_spec(kernels, failures, scratch: Path, served: dict) -> dict:
+    """Phase 30: phase 29's requests and config served speculatively
+    (spec_k = SPEC_K) with a drafter of GPT-2 small's widths at 2 layers
+    (1024 positions, weights from SEED + 1), passed to the engine; the
+    self-draft through the entry point (the registry's target and drafter
+    from the config's seed: equal weights); the preemption run with a
+    drafter."""
+    import torch
+
+    from distributeddeeplearning_tpu_torch import generate as gen_cli
+    from distributeddeeplearning_tpu_torch.models import get_model, model_spec
+    from distributeddeeplearning_tpu_torch.serve import cli as serve_cli
+    from distributeddeeplearning_tpu_torch.serve.engine import ServeConfig
+    from distributeddeeplearning_tpu_torch.utils.weights import (
+        params_from_flax)
+
+    name, requests = SERVE_CONFIG["model"], served["requests"]
+    config = ServeConfig.from_dict({**SERVE_CONFIG, "spec_draft_model": name,
+                                    "spec_k": SPEC_K})
+    draft = get_model(name, dtype=torch.float32, num_layers=SPEC_DRAFT_LAYERS,
+                      vocab_size=VOCAB)
+    dstate = params_from_flax(seeded_flax_params(
+        name, SEED + 1, num_layers=SPEC_DRAFT_LAYERS, vocab_size=VOCAB))
+    state = params_from_flax(dict(np.load(served["params"])))
+    reset_counts(kernels)
+    out, _ = serve_cli.serve(requests, config, state_dict=state,
+                             draft_model=draft, draft_state_dict=dstate)
+    torch.cuda.synchronize()
+    launches = read_counts(kernels)
+    record = serve_figures(out)
+    c = out["counters"]
+    record["acceptance"] = (c["spec_accepted"] / c["spec_proposed"]
+                            if c["spec_proposed"] else None)
+    log(f"# serve spec {name} (f32, drafter {SPEC_DRAFT_LAYERS} layers, "
+        f"spec_k={SPEC_K}, {len(requests)} requests; untraced phase 29: "
+        f"{served['tokens_per_s']} tokens/s): " + json.dumps(record))
+    if not out["leak_check_ok"]:
+        failures.append("serve spec: leak check failed")
+    if any(launches.values()):
+        failures.append(f"the serve spec path launched kernels of the port:"
+                        f" {launches}")
+    if c["spec_rounds"] < 1:
+        failures.append("serve spec: no speculative round")
+    model = gen_cli.load_model(name, str(served["params"]), attn="dense")
+    record["check"] = check_served(failures, f"serve spec {name}", model,
+                                   requests, out["results"],
+                                   served["checked_tokens"])
+    del model, draft, state, dstate
+    torch.cuda.empty_cache()
+
+    # The self-draft through the entry point, without --params.
+    few = requests[:SPEC_SELF_REQUESTS]
+    (scratch / "self_requests.json").write_text(json.dumps(few))
+    (scratch / "self_config.json").write_text(json.dumps(
+        {**SERVE_CONFIG, "spec_draft_model": name, "spec_k": SPEC_K}))
+    out_path = scratch / "self_out.json"
+    reset_counts(kernels)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = serve_cli.main([
+            "--serve", str(scratch / "self_requests.json"),
+            "--serve-config", str(scratch / "self_config.json"),
+            "--serve-out", str(out_path)])
+    launches = read_counts(kernels)
+    out = json.loads(out_path.read_text())
+    c = out["counters"]
+    ratio = (c["spec_accepted"] / c["spec_proposed"]
+             if c["spec_proposed"] else 0.0)
+    self_record = {**serve_figures(out), "acceptance": ratio}
+    log(f"# serve self-draft {name} through the entry point ({len(few)} "
+        f"requests, registry weights from seed {SEED}): "
+        + json.dumps(self_record))
+    if rc != 0 or any(launches.values()):
+        failures.append(f"serve self-draft: exit {rc}, launches {launches}")
+    if ratio < SPEC_SELF_ACCEPT_MIN:
+        failures.append(f"serve self-draft: accepted/proposed {ratio} < "
+                        f"{SPEC_SELF_ACCEPT_MIN}")
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        model = model_spec(name).build(vocab_size=VOCAB,
+                                       dtype=torch.float32)
+    model = model.cuda().eval()
+    self_record["check"] = check_served(
+        failures, f"serve self-draft {name}", model, few, out["results"], {})
+    record["self_draft"] = self_record
+    del model
+    torch.cuda.empty_cache()
+    record["preemption"] = phase_serve_preemption(failures,
+                                                  spec_k=PREEMPT_SPEC_K)
+    return record
+
+
+def phase_serve_traced(kernels, failures, scratch: Path,
+                       served: dict) -> dict:
+    """Phase 31: phase 29's run again with ``--serve-trace-dir``: the merged
+    trace loads, every ``serve:*`` name in it is registered, every
+    finished request's attribution sums to its latency and TTFT within 1
+    ms; the p50/p99 of each TTFT component, and tokens/s beside phase
+    29's untraced rate (tracing's cost, not gated); every request equal to
+    ``generate(use_cache=True)`` but at a tie, as in phase 29."""
+    import torch
+
+    from distributeddeeplearning_tpu_torch import generate as gen_cli
+    from distributeddeeplearning_tpu_torch.observability import telemetry
+    from distributeddeeplearning_tpu_torch.serve import cli as serve_cli
+    from distributeddeeplearning_tpu_torch.serve import tracing
+
+    requests = served["requests"]
+    (scratch / "traced_requests.json").write_text(json.dumps(requests))
+    (scratch / "traced_config.json").write_text(json.dumps(SERVE_CONFIG))
+    out_path, trace_dir = scratch / "traced_out.json", scratch / "trace"
+    reset_counts(kernels)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = serve_cli.main([
+            "--serve", str(scratch / "traced_requests.json"),
+            "--serve-config", str(scratch / "traced_config.json"),
+            "--serve-out", str(out_path), "--params", str(served["params"]),
+            "--serve-trace-dir", str(trace_dir)])
+    torch.cuda.synchronize()
+    launches = read_counts(kernels)
+    out = json.loads(out_path.read_text())
+    events, error = telemetry.load_events_tolerant(out["merged_trace"])
+    names = {e.get("name", "") for e in events}
+    unregistered = sorted(n for n in names if n.startswith("serve:")
+                          and n not in tracing.REGISTERED_PHASES)
+    atts = [e["args"] for e in events if e.get("name") == "serve:attribution"
+            and e["args"].get("status") == "ok"]
+    worst = max((max(abs(a["sum_err_s"]), abs(a.get("ttft_sum_err_s", 0.0)))
+                 for a in atts), default=None)
+    finished = sum(r["finished"] for r in out["results"].values())
+    same = sum(out["results"][str(uid)]["tokens"] == tokens
+               for uid, tokens in served["checked_tokens"].items())
+    model = gen_cli.load_model(SERVE_CONFIG["model"], str(served["params"]),
+                               attn="dense")
+    check = check_served(failures, "serve traced", model, requests,
+                         out["results"], served["checked_tokens"])
+    del model
+    torch.cuda.empty_cache()
+    record = {**serve_figures(out), "untraced_tokens_per_s":
+              served["tokens_per_s"],
+              "traced_over_untraced": (out["tokens_per_s"]
+                                       / served["tokens_per_s"]),
+              "events": len(events), "attributions": len(atts),
+              "worst_sum_err_s": worst,
+              "ttft_components_s": out["ttft_components_s"],
+              "latency_components_s": out["latency_components_s"],
+              "tokens_equal_to_phase_29": same, "check": check}
+    log(f"# serve traced {SERVE_CONFIG['model']} (--serve-trace-dir, "
+        f"{len(requests)} requests): " + json.dumps(record))
+    if rc != 0 or not out["leak_check_ok"] or any(launches.values()):
+        failures.append(f"serve traced: exit {rc}, leak check "
+                        f"{out['leak_check_ok']}, launches {launches}")
+    if error is not None or unregistered:
+        failures.append(f"serve traced: merged trace {error}, unregistered "
+                        f"names {unregistered}")
+    if len(atts) != finished or worst is None or worst >= 1e-3:
+        failures.append(f"serve traced: {len(atts)} attributions for "
+                        f"{finished} finished requests, worst sum error "
+                        f"{worst}")
+    return record
+
+
+
+# serve_ab: runs of each kind in one process, in turns.
+SERVE_AB_REPEATS = 3
+SERVE_AB_KEYS = ("tokens_per_s", "window_s", "ttft_s", "itl_s")
+
+
+def serve_ab(first: str, second: str) -> int:
+    """Phase 29's untraced serve run with the port of checkout ``first``
+    and of ``second``, each in a process of its own, in turns (first,
+    second, second, first); a checkout that has them also serves the same
+    requests traced (phase 31) and speculatively (phase 30's drafter), in
+    turns with its untraced runs, so that each ratio is read within one
+    process."""
+    for root in (first, second, second, first):
+        proc = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve()), "--serve-run",
+             root], capture_output=True, text=True, timeout=900)
+        lines = proc.stdout.strip().splitlines()
+        if proc.returncode or not lines:
+            print(proc.stdout + proc.stderr, file=sys.stderr)
+            return 1
+        log("# serve_ab " + json.dumps({"checkout": root,
+                                         **json.loads(lines[-1])}))
+    return 0
+
+
+def serve_run(root: str) -> int:
+    """``serve_ab``'s child: phase 29's requests served through the entry
+    point SERVE_AB_REPEATS times with the port of checkout ``root``, each
+    untraced run followed, where the checkout has them, by a traced one
+    (``--serve-trace-dir``) and a speculative one (phase 30's drafter);
+    its record as the last line."""
+    import tempfile
+
+    import torch
+
+    sys.path.insert(0, str(Path(root).resolve()))
+    if not torch.cuda.is_available():
+        return 1
+    from distributeddeeplearning_tpu_torch.models import get_model
+    from distributeddeeplearning_tpu_torch.serve import cli as serve_cli
+    from distributeddeeplearning_tpu_torch.serve.engine import ServeConfig
+    from distributeddeeplearning_tpu_torch.utils.weights import (
+        params_from_flax)
+
+    later = hasattr(ServeConfig, "spec_enabled")
+    name = SERVE_CONFIG["model"]
+    scratch = Path(tempfile.mkdtemp(prefix="serve_ab_"))
+    try:
+        flax = seeded_flax_params(name, SEED,
+                                  vocab_size=SERVE_CONFIG["vocab_size"])
+        np.savez(scratch / "params.npz", **flax)
+        state = params_from_flax(flax)
+        requests = serve_traffic(np.random.default_rng(SEED + 29))
+        (scratch / "requests.json").write_text(json.dumps(requests))
+        (scratch / "config.json").write_text(json.dumps(SERVE_CONFIG))
+        argv = ["--serve", str(scratch / "requests.json"),
+                "--serve-config", str(scratch / "config.json"),
+                "--serve-out", str(scratch / "out.json"),
+                "--params", str(scratch / "params.npz")]
+        kinds = ("untraced", "traced", "spec") if later else ("untraced",)
+        runs = {kind: [] for kind in kinds}
+        for r in range(SERVE_AB_REPEATS):
+            for kind in kinds:
+                if kind == "spec":
+                    draft = get_model(name, dtype=torch.float32,
+                                      num_layers=SPEC_DRAFT_LAYERS,
+                                      vocab_size=VOCAB)
+                    dstate = params_from_flax(seeded_flax_params(
+                        name, SEED + 1, num_layers=SPEC_DRAFT_LAYERS,
+                        vocab_size=VOCAB))
+                    out, _ = serve_cli.serve(
+                        requests, ServeConfig.from_dict(
+                            {**SERVE_CONFIG, "spec_draft_model": name,
+                             "spec_k": SPEC_K}),
+                        state_dict=state, draft_model=draft,
+                        draft_state_dict=dstate)
+                    del draft, dstate
+                else:
+                    extra = (["--serve-trace-dir", str(scratch / f"t{r}")]
+                             if kind == "traced" else [])
+                    with contextlib.redirect_stdout(io.StringIO()):
+                        rc = serve_cli.main(argv + extra)
+                    out = json.loads((scratch / "out.json").read_text())
+                    if rc != 0:
+                        return 1
+                torch.cuda.synchronize()
+                runs[kind].append({k: out[k] for k in SERVE_AB_KEYS})
+                torch.cuda.empty_cache()
+        record = {"runs": runs, "median_tokens_per_s": {
+            kind: float(np.median([x["tokens_per_s"] for x in v]))
+            for kind, v in runs.items()}}
+        log(json.dumps(record))
+        return 0
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+
+def beam_tie(model, prompt, a, b) -> dict:
+    """Where beam outputs ``a`` and ``b`` of one prompt part: each one's
+    summed log-probability through the parting step (its candidate score
+    there) from one dense f32 forward; a tie when they lie within
+    BEAM_TIE_TOL."""
+    import torch
+
+    j = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+    scores = []
+    with torch.inference_mode():
+        for seq in (a, b):
+            ids = torch.as_tensor([seq[:j + 1]], device="cuda")
+            logp = torch.log_softmax(model(ids)[0].double(), dim=-1)
+            pos = torch.arange(len(prompt) - 1, j, device="cuda")
+            scores.append(float(logp[pos, ids[0, pos + 1]].sum()))
+    gap = abs(scores[0] - scores[1])
+    return {"step": j - len(prompt), "scores": scores, "gap": gap,
+            "tie": gap <= BEAM_TIE_TOL}
+
+
+def phase_beam_spec(kernels, failures, scratch: Path) -> dict:
+    """Phase 32: GPT-2 small f32 beam search through the generate CLI (2
+    prompts x BEAM_PROMPT_LEN, BEAM_WIDTH beams, BEAM_NEW new tokens) by
+    KV cache, by dense refeed and by refeed through the flash kernel (#1
+    counted at 12 x BEAM_NEW); ids equal, or parted at a tie of the parting
+    step's candidate scores; then ``--draft-model gpt_nano --draft-len 4``
+    against greedy ``generate``."""
+    import torch
+
+    from distributeddeeplearning_tpu_torch import generate as gen_cli
+
+    npz = scratch / "gpt2_small.npz"
+    if not npz.exists():
+        np.savez(npz, **seeded_flax_params("gpt2_small", SEED))
+    nano = scratch / "gpt_nano.npz"
+    np.savez(nano, **seeded_flax_params("gpt_nano", SEED + 32,
+                                        vocab_size=VOCAB))
+    rng = np.random.default_rng(SEED + 32)
+    prompts = rng.integers(0, VOCAB, (2, BEAM_PROMPT_LEN)).tolist()
+    rows = [x for p in prompts for x in ("--prompt-ids",
+                                         ",".join(map(str, p)))]
+    base = ["--model", "gpt2_small", "--params", str(npz), "--max-new-tokens",
+            str(BEAM_NEW), "--num-beams", str(BEAM_WIDTH)]
+    runs, seconds, counted = {}, {}, {}
+    for label, extra in (("cached", ["--use-cache"]), ("refeed", []),
+                         ("refeed_flash", ["--attn", "flash"])):
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        runs[label] = run_cli(base + rows + extra)
+        torch.cuda.synchronize()
+        seconds[label] = time.perf_counter() - t0
+        launches = counted[label] = read_counts(kernels)
+        want = ({"flash_attention_fwd": 12 * BEAM_NEW}
+                if label == "refeed_flash" else {})
+        got = {k: v for k, v in launches.items() if v}
+        if got != want:
+            failures.append(f"beam {label}: kernel launches {got}, want "
+                            f"{want}")
+    model = gen_cli.load_model("gpt2_small", str(npz), attn="dense")
+    ties = []
+    for a, b in (("cached", "refeed"), ("refeed", "refeed_flash"),
+                 ("cached", "refeed_flash")):
+        for row, prompt in enumerate(prompts):
+            x, y = runs[a][row], runs[b][row]
+            if x == y:
+                continue
+            tie = beam_tie(model, prompt, x, y)
+            ties.append({"runs": [a, b], "prompt": row, **tie})
+            if not tie["tie"]:
+                failures.append(f"beam {a} and {b} part on prompt {row}: "
+                                f"{tie}")
+    record = {"seconds": seconds, "beam_launches": counted["refeed_flash"],
+              "equal": all(runs["cached"][r] == runs[k][r]
+                           for k in runs for r in range(len(prompts))),
+              "ties": ties}
+    spec_seconds, checks = [], []
+    for prompt in prompts:
+        t0 = time.perf_counter()
+        out = run_cli(["--model", "gpt2_small", "--params", str(npz),
+                       "--max-new-tokens", str(BEAM_NEW), "--prompt-ids",
+                       ",".join(map(str, prompt)), "--draft-model",
+                       "gpt_nano", "--draft-params", str(nano),
+                       "--draft-len", "4"])[0]
+        spec_seconds.append(time.perf_counter() - t0)
+        check = greedy_check(model, prompt, out[len(prompt):], BEAM_NEW)
+        checks.append(check)
+        if not (check["same"] or check["tie"]):
+            failures.append(f"speculative generate parts from greedy: "
+                            f"{check}")
+    record.update(spec_seconds=spec_seconds, spec_checks=checks)
+    log(f"# beam and speculative generation (gpt2_small f32, 2 x "
+        f"{BEAM_PROMPT_LEN} prompts, {BEAM_WIDTH} beams, {BEAM_NEW} new): "
+        + json.dumps(record))
+    del model
     torch.cuda.empty_cache()
     return record
 
@@ -3644,7 +4119,13 @@ def main() -> int:
         timed("token_dp_vs_one_card_step", phase_token_dp_bitwise, failures,
               scratch)
         timed("accum_vs_one_step", phase_accum_step, failures)
-        timed("serve", phase_serve, kernels, failures, scratch)
+        served = timed("serve", phase_serve, kernels, failures, scratch)
+        timed("serve_spec", phase_serve_spec, kernels, failures, scratch,
+              served)
+        timed("serve_traced", phase_serve_traced, kernels, failures,
+              scratch, served)
+        beam = timed("beam_spec_generate", phase_beam_spec, kernels,
+                      failures, scratch)
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
     log(f"# total: {time.perf_counter() - t_start:.2f} s")
@@ -3682,7 +4163,9 @@ def main() -> int:
                 "bert_mlm_shards": bert["shards"]["launches"][k["name"]],
                 "vit_b16": vit["launches"][k["name"]],
                 "bert_mlm_accum8_torchrun": token_dp["launches"].get(
-                    k["name"])}
+                    k["name"]),
+                "gpt2_beam_refeed_flash": beam["beam_launches"][
+                    k["name"]]}
             for shape, by_kernel in model_rows.items():
                 extra[f"{shape}_shape"] = {
                     key: by_kernel[k["name"]].get(key) for key in (
@@ -3723,6 +4206,14 @@ def parse_args(argv):
         "3x3 and 1x1 conv+BatchNorm kernels, with the port of one CHECKOUT "
         "and of another (default: this one), in turns (first, second, "
         "second, first), each in a process of its own")
+    parser.add_argument(
+        "--serve-ab", metavar="CHECKOUT", nargs="+",
+        help="only serve phase 29's requests with the port of one CHECKOUT "
+        "and of another (default: this one), in turns (first, second, "
+        "second, first), each in a process of its own: untraced, and, where "
+        "the checkout has them, traced and speculative, in turns")
+    parser.add_argument("--serve-run", metavar="CHECKOUT",
+                        help=argparse.SUPPRESS)
     parser.add_argument("--gpt2-step", metavar="CHECKOUT",
                         help=argparse.SUPPRESS)
     parser.add_argument("--resnet-step", metavar="CHECKOUT",
@@ -3740,4 +4231,11 @@ if __name__ == "__main__":
         if len(cli.step_ab) > 2:
             sys.exit("--step-ab takes one or two checkouts")
         sys.exit(step_ab(cli.step_ab[0], (cli.step_ab[1:] or [str(ROOT)])[0]))
+    if cli.serve_run:
+        sys.exit(serve_run(cli.serve_run))
+    if cli.serve_ab:
+        if len(cli.serve_ab) > 2:
+            sys.exit("--serve-ab takes one or two checkouts")
+        sys.exit(serve_ab(cli.serve_ab[0],
+                          (cli.serve_ab[1:] or [str(ROOT)])[0]))
     sys.exit(main())

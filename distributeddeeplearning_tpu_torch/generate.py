@@ -10,6 +10,11 @@ Weights come from ``--params``: an ``.npz`` of the JAX package's ``params``
 collection with ``/``-joined paths (orbax checkpoints need JAX to read).
 Computes in float32. Runs on the GPU unless ``--device cpu`` is given.
 Prints one ``{"tokens": [...]}`` line per prompt.
+
+``--num-beams K`` decodes by beam search (with ``--length-penalty``,
+``--eos-id`` and ``--use-cache``); ``--draft-model NAME --draft-params
+FILE`` decodes speculatively, ``--draft-len`` proposals a round, batch 1
+and greedy, exactly the target's greedy continuation.
 """
 
 from __future__ import annotations
@@ -25,7 +30,8 @@ import torch
 
 from distributeddeeplearning_tpu_torch import resolve_device
 from distributeddeeplearning_tpu_torch.models import get_model
-from distributeddeeplearning_tpu_torch.models.generate import generate
+from distributeddeeplearning_tpu_torch.models.generate import (
+    generate, generate_beam, generate_speculative)
 from distributeddeeplearning_tpu_torch.utils.weights import params_from_flax
 
 _EMBEDDINGS = ("wte", "embed_tokens")
@@ -74,6 +80,25 @@ def main(argv=None) -> int:
     p.add_argument("--use-cache", action="store_true",
                    help="KV-cache incremental decoding: O(S) per token "
                         "instead of full-refeed O(S^2)")
+    p.add_argument("--num-beams", type=int, default=0,
+                   help="beam-search decoding with this many beams "
+                        "(deterministic; overrides temperature/top-k; "
+                        "composes with --use-cache)")
+    p.add_argument("--length-penalty", type=float, default=1.0,
+                   help="beam scores divide by length**alpha (>1 favors "
+                        "longer hypotheses); only with --num-beams")
+    p.add_argument("--eos-id", type=int, default=None,
+                   help="end-of-sequence token id for beam search "
+                        "(finished beams freeze and pad)")
+    p.add_argument("--draft-model", default=None,
+                   help="speculative decoding: draft-model name (same "
+                        "vocabulary); emits the exact target greedy "
+                        "continuation with fewer target forwards. "
+                        "Batch 1, greedy only")
+    p.add_argument("--draft-params", default=None,
+                   help="flax-layout params .npz of --draft-model")
+    p.add_argument("--draft-len", type=int, default=4,
+                   help="draft tokens proposed per verify round")
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu")
     args = p.parse_args(argv)
@@ -86,22 +111,55 @@ def main(argv=None) -> int:
     if args.params is None:
         raise SystemExit("no --params file given; refusing to sample from "
                          "randomly initialized weights")
+    if args.draft_model:
+        if args.num_beams or args.temperature > 0:
+            raise SystemExit("--draft-model (speculative) is greedy and "
+                             "single-stream; drop --num-beams/--temperature")
+        if args.use_cache:
+            raise SystemExit("--draft-model decodes through KV caches "
+                             "already; drop --use-cache")
+        if args.draft_len < 1:
+            raise SystemExit(f"--draft-len {args.draft_len}: need >= 1")
+        if not args.draft_params:
+            raise SystemExit("--draft-model needs --draft-params")
+    # The speculative path writes up to draft_len cache slots past
+    # ``total`` before each rewind: both models get that much slack.
+    slack = args.draft_len if args.draft_model else 0
 
     model = load_model(args.model, args.params, attn=args.attn,
-                       seq_len=args.seq_len or total,
+                       seq_len=(args.seq_len or total) + slack,
                        vocab_size=args.vocab_size, device=device)
     if not all(0 <= t < model.cfg.vocab_size for r in prompts for t in r):
         raise SystemExit(f"prompt ids must lie in [0, "
                          f"{model.cfg.vocab_size})")
-    if args.use_cache and hasattr(model.cfg, "decode_cache_len"):
+    if ((args.use_cache or args.draft_model)
+            and hasattr(model.cfg, "decode_cache_len")):
         # Right-size the Llama KV cache to this request (only init_cache
         # reads it): a fixed default buffer would be mostly unused.
-        model.cfg = dataclasses.replace(model.cfg, decode_cache_len=total)
-    out = generate(model, prompts, max_new_tokens=args.max_new_tokens,
-                   temperature=args.temperature, top_k=args.top_k,
-                   generator=torch.Generator(device=device).manual_seed(
-                       args.seed),
-                   use_cache=args.use_cache)
+        model.cfg = dataclasses.replace(model.cfg,
+                                        decode_cache_len=total + slack)
+    if args.draft_model:
+        draft = load_model(args.draft_model, args.draft_params,
+                           attn=args.attn, seq_len=total + slack,
+                           vocab_size=model.cfg.vocab_size, device=device)
+        if hasattr(draft.cfg, "decode_cache_len"):
+            draft.cfg = dataclasses.replace(draft.cfg,
+                                            decode_cache_len=total + slack)
+        out = generate_speculative(model, draft, prompts,
+                                   max_new_tokens=args.max_new_tokens,
+                                   draft_len=args.draft_len)
+    elif args.num_beams > 0:
+        out = generate_beam(model, prompts,
+                            max_new_tokens=args.max_new_tokens,
+                            num_beams=args.num_beams,
+                            length_penalty=args.length_penalty,
+                            eos_id=args.eos_id, use_cache=args.use_cache)
+    else:
+        out = generate(model, prompts, max_new_tokens=args.max_new_tokens,
+                       temperature=args.temperature, top_k=args.top_k,
+                       generator=torch.Generator(device=device).manual_seed(
+                           args.seed),
+                       use_cache=args.use_cache)
     for row in out.tolist():
         print(json.dumps({"tokens": row}), flush=True)
     return 0

@@ -6,6 +6,12 @@ lockstep, plus GPT's ``position`` counter, which equals them. Here it is one
 object the caller creates with ``model.init_cache(batch)`` and passes to
 every decode forward: per-layer buffers and the one shared write index.
 The buffers are written in place, which saves a copy of the cache per step.
+
+Beam search maps the batch rows (:meth:`KVCache.map_rows`: expand the
+prompt's rows to one per beam, then reorder them by surviving parent beam
+each step), as JAX ``_map_batched_cache`` maps its ``cached_key`` /
+``cached_value`` leaves; speculative decoding rewinds the write index
+(:meth:`KVCache.rewind`, JAX ``_rewind_cache``).
 """
 
 from __future__ import annotations
@@ -50,6 +56,23 @@ class KVCache:
 
     def advance(self, s: int) -> None:
         self.index += s
+
+    def rewind(self, index: int) -> None:
+        """Set the write index back to ``index``. The entries past it are
+        dead: attention masks slots >= index and the next write overwrites
+        them, so a rewind moves only the index."""
+        if not 0 <= index <= self.index:
+            raise ValueError(f"rewind to {index}: the cache holds "
+                             f"[0, {self.index})")
+        self.index = int(index)
+
+    def map_rows(self, fn) -> None:
+        """Replace every per-layer buffer by ``fn(buffer)``, a map over the
+        batch dimension (``repeat_interleave`` to expand rows into beams,
+        ``index_select`` to reorder them); the write index is shared by
+        every row and stays."""
+        self.keys = [fn(k) for k in self.keys]
+        self.values = [fn(v) for v in self.values]
 
 
 def live_mask(index: int, s: int, device) -> torch.Tensor:

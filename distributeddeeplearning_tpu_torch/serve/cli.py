@@ -17,11 +17,30 @@ paths, or else from the registry model built with the config's seed.
 
 ``--serve-out`` gets ``results`` keyed by uid (``tokens``, ``finished``,
 ``failed``, ``ttft_s``, ``itl_s``, ``preemptions``) with ``leak_check_ok``,
-the engine's counters and the run's figures; the engine's ``warmup`` runs
-before the clock starts. The drained line is printed
-last; the exit code is 0 only if every request finished and the leak check
-held. Several replicas (``--num-processes`` above 1) and ``--serve-
-autoscale`` need the replica supervisor, a later slice of the port.
+the engine's counters (the speculative ones included) and the run's
+figures; the engine's ``warmup`` runs before the clock starts. The drained
+line is printed last; the exit code is 0 only if every request finished
+and the leak check held. A config with ``spec_draft_model`` and ``spec_k``
+serves speculatively, the drafter from the registry (see ``Engine``).
+
+``--serve-trace-dir DIR`` (the JAX launcher's flag, for one replica)
+enables telemetry before the engine is built, so every request records its
+span tree and TTFT attribution (serve/tracing.py); after the drain the
+replica's trace is exported to ``DIR/trace.p0.json`` and merged into
+``DIR/trace.merged.json``, and ``--serve-out`` gains ``trace_dir``,
+``merged_trace`` and the p50/p99 of each TTFT and latency component.
+
+The engine's gauges (``observability/metrics.py``, under the JAX engine's
+series names: live slots, page occupancy, queue depth, sheds, deadline
+misses, retries, allocation failures, prefix hit rate, speculative
+acceptance, each request's TTFT) are summed up under ``metrics`` in
+``--serve-out``.
+With ``DDL_FLIGHT_DIR`` set, the engine's lifecycle events (admit, prefill,
+first token, retire, preempt, shed, copy on write, shutdown) are appended
+to ``$DDL_FLIGHT_DIR/flight.p0.jsonl`` as they happen, run id from
+``DDL_RUN_ID``, as the JAX replica records them.
+Several replicas (``--num-processes`` above 1) and ``--serve-autoscale``
+need the replica supervisor, a later slice of the port.
 """
 
 from __future__ import annotations
@@ -29,6 +48,7 @@ from __future__ import annotations
 import argparse
 import collections
 import json
+import os
 import sys
 import time
 from typing import Callable, Optional, Sequence
@@ -36,6 +56,9 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from distributeddeeplearning_tpu_torch.observability import (
+    flight, metrics, telemetry)
+from distributeddeeplearning_tpu_torch.serve import tracing
 from distributeddeeplearning_tpu_torch.serve.engine import Engine, ServeConfig
 
 SUPERVISOR_SLICE = ("the replica supervisor (JAX launch.py run_serve: "
@@ -46,7 +69,7 @@ SUPERVISOR_SLICE = ("the replica supervisor (JAX launch.py run_serve: "
 MAX_STEPS = 1_000_000
 COUNTERS = ("steps", "preemptions", "sheds", "deadline_misses", "retries",
             "prefix_hits", "prefix_misses", "prefix_tokens_reused",
-            "cow_copies")
+            "cow_copies", "spec_rounds", "spec_proposed", "spec_accepted")
 
 
 def _quantiles(values) -> dict:
@@ -60,12 +83,48 @@ def _quantiles(values) -> dict:
 def serve(requests: Sequence[dict], config: ServeConfig, *,
           state_dict: Optional[dict] = None, device=None,
           clock: Callable[[], float] = time.monotonic,
-          sleep: Callable[[float], None] = time.sleep):
+          sleep: Callable[[float], None] = time.sleep,
+          trace_dir: Optional[str] = None, **engine_kw):
     """Drive one engine over ``requests`` (dicts as in the module doc),
     admitting each at its ``arrival_s`` after the start on ``clock``.
-    Returns ``(out, engine)``: ``out`` is what ``--serve-out`` holds."""
+    Returns ``(out, engine)``: ``out`` is what ``--serve-out`` holds. With
+    ``trace_dir`` the run is traced into it (``--serve-trace-dir``); the
+    telemetry singleton is reset to its disabled state afterwards.
+    ``engine_kw`` goes to the ``Engine`` (``model=``, ``draft_model=``,
+    ``draft_state_dict=``)."""
+    if trace_dir is None:
+        return _serve(requests, config, state_dict=state_dict,
+                      device=device, clock=clock, sleep=sleep, **engine_kw)
+    os.makedirs(trace_dir, exist_ok=True)
+    tele = telemetry.configure(enabled=True, trace_dir=trace_dir,
+                               process_index=0, process_name="replica-0")
+    try:
+        out, engine = _serve(requests, config, state_dict=state_dict,
+                             device=device, clock=clock, sleep=sleep,
+                             **engine_kw)
+        tele.export(telemetry.trace_path(trace_dir, 0))
+    finally:
+        telemetry.reset()
+    merged, errors = telemetry.merge_trace_dir(trace_dir)
+    out["trace_dir"] = trace_dir
+    out["merged_trace"] = merged
+    if errors:
+        out["trace_merge_errors"] = errors
+    done = [r for r in engine.finished if r.trace is not None]
+    out["ttft_components_s"] = {
+        k: _quantiles([r.trace.ttft_comp[k] for r in done
+                       if r.trace.ttft_comp is not None])
+        for k in tracing.COMPONENTS}
+    out["latency_components_s"] = {
+        k: _quantiles([r.trace.comp[k] for r in done])
+        for k in tracing.COMPONENTS}
+    return out, engine
+
+
+def _serve(requests, config, *, state_dict, device, clock, sleep,
+           **engine_kw):
     engine = Engine(config, state_dict=state_dict, device=device,
-                    clock=clock)
+                    clock=clock, **engine_kw)
     cuda = engine.device.type == "cuda"
     pending = collections.deque(sorted(
         ((float(d.get("arrival_s", 0.0)), int(d.get("uid", i)), d)
@@ -142,6 +201,10 @@ def main(argv=None) -> int:
                    help="flax-layout params .npz ('/'-joined paths); "
                         "default: the registry model seeded by the config")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
+    p.add_argument("--serve-trace-dir", default=None, metavar="TRACE_DIR",
+                   help="record per-request span trees and TTFT "
+                        "attribution (serve/tracing.py) and merge them "
+                        "into TRACE_DIR/trace.merged.json after the drain")
     p.add_argument("--num-processes", type=int, default=None,
                    help="replicas; only 1 in this slice")
     p.add_argument("--serve-autoscale", default=None, metavar="MIN:MAX",
@@ -165,11 +228,19 @@ def main(argv=None) -> int:
         with np.load(args.params) as npz:
             state_dict = params_from_flax(dict(npz))
 
+    recorder = flight.configure_from_env(host=0)
+    metrics.configure(run_id=recorder.run_id)
     try:
         out, _ = serve(requests, config, state_dict=state_dict,
-                       device=args.device)
+                       device=args.device, trace_dir=args.serve_trace_dir)
+        out["metrics"] = metrics.get().aggregate()
+        if recorder.enabled:
+            out["flight_file"] = recorder.path
     except ValueError as e:   # a config or request this engine refuses
         p.error(str(e))
+    finally:
+        flight.reset()
+        metrics.reset()
     if args.serve_out:
         with open(args.serve_out, "w", encoding="utf-8") as f:
             json.dump(out, f, indent=2, sort_keys=True)

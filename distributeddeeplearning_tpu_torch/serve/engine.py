@@ -15,7 +15,14 @@ other request in the batch. This engine runs two kinds of forward instead:
 - **decode**, one forward for every slot: each live slot advances exactly
   one token through the models' paged branch. Slots join and leave between
   steps by flipping rows of the page table, lengths and live mask, so the
-  decode forward keeps one shape.
+  decode forward keeps one shape;
+- with **speculative decoding** (``spec_draft_model`` and ``spec_k``), a
+  drafter over its own pools, in the same page-id space (one allocator,
+  one page table), proposes up to ``spec_k`` tokens a slot by paged
+  decode steps, and one target forward over the paged block branch
+  verifies every slot's ``[fed token, proposals]`` block; the longest
+  prefix matching the target's own greedy tokens is accepted, plus the
+  target's next token.
 
 Host state is numpy (page table, lengths, live mask, the fed tokens) and is
 uploaded every step; device state is the model and the pools, written in
@@ -27,16 +34,24 @@ that continuation exact. The tests hold the tokens to sequential
 ``generate(use_cache=True)`` and to the JAX engine, across preemption,
 mid-stream retire and admit, and prefix-cache hits with copy on write.
 
-Left for later slices of the port, as the JAX engine has them:
-speculative decoding (``spec_draft_model``/``spec_k``, refused here) and
-beam search; serve fault plans (``fault_plan``, refused: the operational
-layers, ``robustness/faults.py``); request tracing (``serve/tracing.py``,
-with ``observability/telemetry``) and the metrics gauges and flight
-events (the observability layers); ``serve_fingerprint`` and the AOT
-executable cache (``compile_cache_dir`` is accepted and has no effect, so a
-JAX ``config.json`` loads), whose counterpart, CUDA graphs of the decode
-step, comes with the compile-cache layer; the multi-replica supervisor
-(``launch.run_serve``).
+Observability, as in the JAX engine: lifecycle events (``serve_admit``,
+``serve_prefill``, ``serve_first_token``, ``serve_retire``,
+``serve_preempt``, ``serve_shed``, ``serve_deadline_miss``,
+``serve_cow_copy``, ``serve_shutdown``) go to the flight recorder, the
+engine's gauges to ``observability/metrics.py`` every step. When telemetry
+is enabled at construction, ``serve/tracing.py`` adds request-scoped span
+trees and exact TTFT and latency attribution; when it is not, the engine
+holds no tracer and every site pays one ``is not None`` check. The engine
+reads its clock at the JAX engine's points, traced or not, so both give
+the same times on the same fake clock.
+
+Left for later slices of the port, as the JAX engine has them: serve
+fault plans (``fault_plan``, refused: the operational layers,
+``robustness/faults.py``) and the multi-replica supervisor
+(``launch.run_serve``); ``serve_fingerprint`` and the AOT executable cache
+(``compile_cache_dir`` is accepted and has no effect, so a JAX
+``config.json`` loads), whose counterpart, CUDA graphs of the decode step,
+comes with the compile-cache layer.
 """
 
 from __future__ import annotations
@@ -44,7 +59,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import time
-from typing import Callable, NamedTuple, Optional, Sequence
+from typing import Any, Callable, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -53,13 +68,12 @@ from distributeddeeplearning_tpu_torch import resolve_device
 from distributeddeeplearning_tpu_torch.models.decode_cache import KVCache
 from distributeddeeplearning_tpu_torch.models.generate import (
     _require_decode, decode_capacity)
+from distributeddeeplearning_tpu_torch.observability import flight, metrics
 from distributeddeeplearning_tpu_torch.serve import kv_cache
+from distributeddeeplearning_tpu_torch.serve import tracing
 from distributeddeeplearning_tpu_torch.serve.scheduler import (
     BrownoutController, SloScheduler)
 
-SPEC_SLICE = ("speculative decoding (spec_draft_model/spec_k) comes with a "
-              "later slice of the port: the drafter decode and the batched "
-              "verify, with the gpt_nano/llama_nano drafters")
 FAULT_SLICE = ("serve fault plans (fault_plan) come with a later slice of "
                "the port: the operational layers, robustness/faults.py")
 
@@ -67,7 +81,7 @@ FAULT_SLICE = ("serve fault plans (fault_plan) come with a later slice of "
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
     """The JAX engine's config, field for field. ``compile_cache_dir`` has
-    no effect here; the spec fields are refused by :class:`Engine`."""
+    no effect here."""
 
     model: str = "gpt_tiny"
     vocab_size: int = 1024
@@ -82,6 +96,9 @@ class ServeConfig:
     # cached full prompt pages into the slot's table and prefills only the
     # unmatched suffix.
     prefix_cache: bool = False
+    # Speculative decoding: a drafter proposes spec_k tokens a round, one
+    # batched target verify accepts the longest greedy-matching prefix
+    # (token-identical by construction). Both must be set together.
     spec_draft_model: Optional[str] = None
     spec_k: int = 0
     compile_cache_dir: Optional[str] = None
@@ -99,6 +116,10 @@ class ServeConfig:
     def slot_capacity(self) -> int:
         """Max prompt + generated tokens a single slot can ever hold."""
         return self.page_size * self.max_pages_per_slot
+
+    @property
+    def spec_enabled(self) -> bool:
+        return self.spec_k > 0 and self.spec_draft_model is not None
 
 
 @dataclasses.dataclass
@@ -119,6 +140,9 @@ class Request:
     not_before_s: float = 0.0   # retry backoff: ineligible before this
     failed: Optional[str] = None  # "deadline"/"shed"/"retries_exhausted"
     _last_emit_s: Optional[float] = None
+    # tracing.RequestTrace when the engine was built with telemetry on;
+    # None otherwise.
+    trace: Any = None
 
     @property
     def total_tokens(self) -> int:
@@ -174,39 +198,43 @@ class Engine:
     ``model``: a GPT or Llama module of the port (eval mode is set here);
     by default the registry's ``config.model`` built with ``config.seed``.
     ``state_dict``: weights loaded into it, e.g. JAX ``variables["params"]``
-    carried by ``utils/weights.py`` ``params_from_flax``. ``device``:
-    ``cuda`` unless ``"cpu"`` is asked for; a given model moves there.
-    ``clock`` is injectable (tests drive a fake one).
+    carried by ``utils/weights.py`` ``params_from_flax``. ``draft_model``
+    and ``draft_state_dict``: the same for the speculative drafter; by
+    default the registry's ``config.spec_draft_model`` built with
+    ``config.seed`` when its name is the target's (equal weights) and
+    ``config.seed + 1`` otherwise, the JAX engine's rule. ``device``:
+    ``cuda`` unless ``"cpu"`` is asked for; given models move there.
+    ``clock`` is injectable (tests drive a fake one). Telemetry must be
+    configured before construction for the engine to trace.
     """
 
     def __init__(self, config: ServeConfig, *, model=None,
-                 state_dict: Optional[dict] = None, device=None,
+                 state_dict: Optional[dict] = None, draft_model=None,
+                 draft_state_dict: Optional[dict] = None, device=None,
                  scheduler: Optional[SloScheduler] = None,
                  clock: Optional[Callable[[], float]] = None,
                  brownout: Optional[BrownoutController] = None,
                  fault_plan: Optional[str] = None):
         cfg = config
-        if cfg.spec_k or cfg.spec_draft_model is not None:
-            raise ValueError(SPEC_SLICE)
         if fault_plan:
             raise ValueError(FAULT_SLICE)
         if not cfg.prefill_buckets:
             raise ValueError("prefill_buckets must name at least one "
                              "padded prompt length")
+        if (cfg.spec_k > 0) != (cfg.spec_draft_model is not None):
+            raise ValueError(
+                f"speculative decoding needs BOTH spec_draft_model and "
+                f"spec_k > 0 (got draft={cfg.spec_draft_model!r}, "
+                f"k={cfg.spec_k})")
         self.config = cfg
         self.device = resolve_device(device)
         self.scheduler = scheduler or SloScheduler()
         self.brownout = brownout
         self._clock = clock or time.monotonic
-        if model is None:
-            from distributeddeeplearning_tpu_torch.models import model_spec
-            with torch.random.fork_rng(devices=[]):
-                torch.manual_seed(cfg.seed)
-                model = model_spec(cfg.model).build(
-                    vocab_size=cfg.vocab_size, dtype=_dtype(cfg.dtype))
-        if state_dict is not None:
-            model.load_state_dict(state_dict)
-        self.model = model.to(self.device).eval()
+        # Resolved once: None is the disabled path, and no per-request
+        # trace state is ever allocated then.
+        self._tracer = tracing.maybe_tracer()
+        self.model = self._build(cfg.model, cfg.seed, model, state_dict)
 
         capacity = decode_capacity(self.model)
         if capacity is not None and cfg.slot_capacity > capacity:
@@ -233,7 +261,36 @@ class Engine:
         self.prefix_tokens_reused = 0
         self.cow_copies = 0
 
+        # Speculative decoding: the drafter's own pools over the same
+        # page ids, so shared prefix pages carry drafter K/V too.
+        self.draft_model = None
+        self.draft_pools = None
+        if cfg.spec_enabled:
+            dseed = (cfg.seed if cfg.spec_draft_model == cfg.model
+                     else cfg.seed + 1)
+            try:
+                self.draft_model = self._build(cfg.spec_draft_model, dseed,
+                                               draft_model, draft_state_dict)
+            except KeyError as e:
+                raise ValueError(
+                    f"speculative decoding refused: drafter {e.args[0]}"
+                ) from None
+            dcap = decode_capacity(self.draft_model)
+            if dcap is not None and cfg.slot_capacity > dcap:
+                raise ValueError(
+                    f"slot capacity {cfg.slot_capacity} exceeds the "
+                    f"drafter's decode bound {dcap}")
+            self.draft_pools = kv_cache.init_pools(
+                self.draft_model, num_pages=cfg.num_pages,
+                page_size=cfg.page_size)
+        self.spec_rounds = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+
         s, p = cfg.max_slots, cfg.max_pages_per_slot
+        # The drafter's cached length per slot: it may lag the target by
+        # one token after a fully accepted round.
+        self._d_len = np.zeros((s,), np.int64)
         self._page_table = np.zeros((s, p), np.int64)
         self._lengths = np.zeros((s,), np.int64)
         self._live = np.zeros((s,), bool)
@@ -250,12 +307,31 @@ class Engine:
         self.deadline_misses = 0
         self.retries = 0
 
+    def _build(self, name: str, seed: int, model, state_dict):
+        """``model`` (or the registry's ``name`` built with ``seed``) with
+        ``state_dict`` loaded, on the engine's device in eval mode."""
+        if model is None:
+            from distributeddeeplearning_tpu_torch.models import model_spec
+            spec = model_spec(name)
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(seed)
+                model = spec.build(vocab_size=self.config.vocab_size,
+                                   dtype=_dtype(self.config.dtype))
+        if state_dict is not None:
+            model.load_state_dict(state_dict)
+        return model.to(self.device).eval()
+
     # -- public surface ---------------------------------------------------
 
     def submit(self, prompt: Sequence[int], *, max_new_tokens: int,
                tenant: str = "default",
-               arrival_s: Optional[float] = None) -> Request:
-        """Queue one request; admission happens on a later ``step()``."""
+               arrival_s: Optional[float] = None,
+               trace_id: Optional[int] = None,
+               resumed: bool = False) -> Request:
+        """Queue one request; admission happens on a later ``step()``.
+        ``trace_id``/``resumed`` are tracing metadata (a caller's own id
+        for the request's flow, and whether it continues a flow opened
+        elsewhere); both are ignored when tracing is off."""
         prompt = [int(t) for t in prompt]
         if not prompt:
             raise ValueError("empty prompt: prefill needs >= 1 token")
@@ -281,7 +357,15 @@ class Engine:
                                  else arrival_s))
         self._uid += 1
         self.waiting.append(req)
+        if self._tracer is not None:
+            self._tracer.on_submit(req, trace_id, resumed=resumed)
         return req
+
+    @property
+    def tracer(self):
+        """The serve tracer (``serve/tracing.ServeTracer``), or None when
+        telemetry was disabled at construction."""
+        return self._tracer
 
     @property
     def num_live(self) -> int:
@@ -294,10 +378,17 @@ class Engine:
     def step(self) -> list:
         """One engine step: shed under brownout pressure, schedule,
         cancel and expire deadline-blown work, preempt, admit (and
-        prefill), advance every live slot one token, retire the finished.
-        Returns the requests that finished during this step."""
+        prefill), advance every live slot (one token, or a speculative
+        round), retire the finished. Returns the requests that finished
+        during this step."""
         now = self._clock()
         finished_before = len(self.finished)
+        tr = self._tracer
+        if tr is not None:
+            # Time since the previous step's end is queue time for
+            # everything still waiting (before the shed pass, so a shed
+            # request's attribution is complete when it is finalized).
+            tr.on_step_start(self.waiting, now)
         if self.brownout is not None:
             for req in self.brownout.plan_shed(
                     now=now, waiting=list(self.waiting),
@@ -306,6 +397,7 @@ class Engine:
                     num_pages=self.config.num_pages):
                 self.waiting.remove(req)
                 self._fail(req, "shed", now)
+        t_plan0 = self._clock() if tr is not None else 0.0
         plan = self.scheduler.plan(
             now=now, waiting=list(self.waiting), live=self._slot_views(),
             free_slots=self.config.max_slots - self.num_live,
@@ -313,6 +405,9 @@ class Engine:
             page_size=self.config.page_size,
             need_pages=(self._need_pages if self.prefix is not None
                         else None))
+        if tr is not None:
+            tr.on_plan(plan, t_plan0, self._clock(), step=self.steps,
+                       waiting=len(self.waiting))
         for slot in plan.cancel:
             self._cancel(slot, now)
         for req in plan.expire:
@@ -324,8 +419,16 @@ class Engine:
             self.waiting.remove(req)
             self._admit(req)
         if self.num_live:
-            self._decode_step()
+            if self.draft_model is not None:
+                self._spec_decode_step()
+            else:
+                self._decode_step()
+        if tr is not None:
+            # This step's waiting time per request, classified by the
+            # scheduler's reason (an allocator-race requeue overrides it).
+            tr.on_step_end(self.waiting, plan, self._clock())
         self.steps += 1
+        self._observe_gauges()
         return self.finished[finished_before:]
 
     def run_until_idle(self, *, max_steps: int = 10_000) -> list:
@@ -341,30 +444,43 @@ class Engine:
             f"scheduling livelock or a request that cannot ever fit")
 
     def warmup(self) -> dict:
-        """Run each prefill bucket and the decode forward once without
+        """Run every forward this engine's features dispatch once without
         touching pool contents (dummy prefills pack no position, the dummy
-        decode has no live row, the dummy clone copies page 0 onto itself)
-        and return each one's first-call seconds."""
+        decode, drafter decode and verify have no live row, the dummy
+        clone copies page 0 onto itself) and return each one's first-call
+        seconds."""
         cfg = self.config
         zero_row = np.zeros((cfg.max_pages_per_slot,), np.int64)
         seconds = {}
-        for bucket in sorted(cfg.prefill_buckets):
+
+        def timed(name, fn, *args, **kw):
             t0 = time.perf_counter()
+            fn(*args, **kw)
+            self._sync()
+            seconds[name] = time.perf_counter() - t0
+
+        for bucket in sorted(cfg.prefill_buckets):
             padded = np.zeros((1, bucket), np.int64)
             if self.prefix is not None:
-                self._run_block_prefill(padded, n_suffix=0, prefix_len=0,
-                                        page_row=zero_row)
+                timed(f"prefill_{bucket}", self._run_block_prefill, padded,
+                      n_suffix=0, prefix_len=0, page_row=zero_row)
             else:
-                self._run_prefill(padded, plen=0, page_row=zero_row)
-            seconds[f"prefill_{bucket}"] = time.perf_counter() - t0
+                timed(f"prefill_{bucket}", self._run_prefill, padded,
+                      plen=0, page_row=zero_row)
+            if self.draft_model is not None:
+                timed(f"draft_prefill_{bucket}", self._run_block_prefill,
+                      padded, n_suffix=0, prefix_len=0, page_row=zero_row,
+                      draft=True)
         if self.prefix is not None:
-            t0 = time.perf_counter()
-            kv_cache.clone_page_rows(self.pools, 0, 0)
-            self._sync()
-            seconds["page_clone"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        self._run_decode()
-        seconds["decode"] = time.perf_counter() - t0
+            timed("page_clone", self._clone_pages, 0, 0)
+        if self.draft_model is not None:
+            timed("draft_decode", self._run_draft_decode, self._feed,
+                  self._d_len, self._live)
+            timed("verify", self._run_verify,
+                  np.zeros((cfg.max_slots, cfg.spec_k + 1), np.int64),
+                  np.zeros((cfg.max_slots,), np.int64))
+        else:
+            timed("decode", self._run_decode)
         return seconds
 
     def check_integrity(self) -> None:
@@ -389,8 +505,25 @@ class Engine:
         self.allocator.check_leaks(owned)
 
     def shutdown(self) -> None:
-        """The final gate: raises RuntimeError unless page accounting
-        balances (allocated == the live page tables + the tree's nodes)."""
+        """The final gate: flight-record the lifetime counters, then raise
+        RuntimeError unless page accounting balances (allocated == the
+        live page tables + the tree's nodes)."""
+        flight.get().record("serve_shutdown", steps=self.steps,
+                            finished=len(self.finished),
+                            failed=len(self.failed),
+                            preemptions=self.preemptions,
+                            sheds=self.sheds,
+                            deadline_misses=self.deadline_misses,
+                            prefix_hits=self.prefix_hits,
+                            prefix_misses=self.prefix_misses,
+                            prefix_tokens_reused=self.prefix_tokens_reused,
+                            prefix_evictions=(self.prefix.evictions
+                                              if self.prefix is not None
+                                              else 0),
+                            cow_copies=self.cow_copies,
+                            spec_rounds=self.spec_rounds,
+                            spec_proposed=self.spec_proposed,
+                            spec_accepted=self.spec_accepted)
         self.check_integrity()
 
     # -- internals --------------------------------------------------------
@@ -401,6 +534,31 @@ class Engine:
 
     def _upload(self, array: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(array, device=self.device)
+
+    def _observe_gauges(self) -> None:
+        """The JAX engine's per-step gauges, under its series names."""
+        reg = metrics.get()
+        step = self.steps
+        reg.observe("serve_live_slots", self.num_live, step=step)
+        reg.observe("serve_page_occupancy",
+                    self.allocator.pages_in_use / self.config.num_pages,
+                    step=step)
+        reg.observe("serve_queue_depth", len(self.waiting), step=step)
+        reg.observe("serve_shed_total", self.sheds, step=step)
+        reg.observe("serve_deadline_miss_total", self.deadline_misses,
+                    step=step)
+        reg.observe("serve_retry_total", self.retries, step=step)
+        reg.observe("serve_alloc_failures", self.allocator.alloc_failures,
+                    step=step)
+        if self.prefix is not None:
+            admits = self.prefix_hits + self.prefix_misses
+            reg.observe("serve_prefix_hit_rate",
+                        (self.prefix_hits / admits) if admits else 0.0,
+                        step=step)
+        if self.draft_model is not None:
+            reg.observe("serve_spec_acceptance",
+                        (self.spec_accepted / self.spec_proposed)
+                        if self.spec_proposed else 0.0, step=step)
 
     def _slot_views(self) -> list:
         return [_SlotView(slot=i, tenant=s.request.tenant,
@@ -469,17 +627,20 @@ class Engine:
 
     @torch.inference_mode()
     def _run_block_prefill(self, padded: np.ndarray, *, n_suffix: int,
-                           prefix_len: int, page_row: np.ndarray) -> int:
+                           prefix_len: int, page_row: np.ndarray,
+                           draft: bool = False) -> int:
         """Suffix prefill over the paged block branch: ``n_suffix`` tokens
         at base position ``prefix_len`` against a page row whose leading
-        pages already hold the cached prefix."""
+        pages already hold the cached prefix; the drafter's, over its
+        pools, with ``draft``."""
+        model, pools = ((self.draft_model, self.draft_pools) if draft
+                        else (self.model, self.pools))
         state = kv_cache.PagedBlockState(
             page_table=self._upload(page_row[None]),
             lengths=self._upload(np.array([prefix_len], np.int64)),
             live=self._upload(np.ones((1,), bool)),
             n_new=self._upload(np.array([n_suffix], np.int64)))
-        logits = self.model(self._upload(padded), paged=state,
-                            pools=self.pools)
+        logits = model(self._upload(padded), paged=state, pools=pools)
         return int(logits[0, max(n_suffix - 1, 0)].argmax())
 
     @torch.inference_mode()
@@ -493,13 +654,52 @@ class Engine:
                             pools=self.pools)
         return logits[:, -1].argmax(dim=-1).cpu().numpy()
 
-    def _run_page_copy(self, src: int, dst: int) -> None:
-        """Copy on write: a shared page into a slot-private one."""
-        self.cow_copies += 1
+    @torch.inference_mode()
+    def _run_draft_decode(self, feed: np.ndarray, lengths: np.ndarray,
+                          active: np.ndarray) -> np.ndarray:
+        """One drafter token for every slot at its drafter length, over
+        the drafter's pools; rows outside ``active`` write nothing."""
+        state = kv_cache.PagedState(self._upload(self._page_table),
+                                    self._upload(lengths),
+                                    self._upload(active))
+        logits = self.draft_model(self._upload(feed), paged=state,
+                                  pools=self.draft_pools)
+        return logits[:, -1].argmax(dim=-1).cpu().numpy()
+
+    @torch.inference_mode()
+    def _run_verify(self, block: np.ndarray, n_new: np.ndarray) -> np.ndarray:
+        """One target forward over every slot's ``[fed token, proposals]``
+        block through the paged block branch: the target's greedy token at
+        every block position. Rejected columns' writes land past the
+        accepted length, where the next block overwrites them."""
+        state = kv_cache.PagedBlockState(
+            page_table=self._upload(self._page_table),
+            lengths=self._upload(self._lengths),
+            live=self._upload(self._live), n_new=self._upload(n_new))
+        logits = self.model(self._upload(block), paged=state,
+                            pools=self.pools)
+        return logits.argmax(dim=-1).cpu().numpy()
+
+    @torch.inference_mode()
+    def _clone_pages(self, src: int, dst: int) -> None:
         kv_cache.clone_page_rows(self.pools, src, dst)
+        if self.draft_model is not None:
+            kv_cache.clone_page_rows(self.draft_pools, src, dst)
+
+    def _run_page_copy(self, src: int, dst: int) -> None:
+        """Copy on write: a shared page into a slot-private one, in the
+        target's pools and the drafter's. Recorded before the copy."""
+        flight.get().record("serve_cow_copy", src=int(src), dst=int(dst))
+        self.cow_copies += 1
+        self._clone_pages(src, dst)
 
     def _admit(self, req: Request) -> None:
         cfg = self.config
+        tr = self._tracer
+        t_adm0 = self._clock() if tr is not None else 0.0
+        if tr is not None:
+            # Time from step start to here served other requests.
+            tr.on_admit_start(req, t_adm0)
         slot = next(i for i, s in enumerate(self._slots) if s is None)
         ids = req.prefill_ids
         plen = len(ids)
@@ -533,6 +733,8 @@ class Engine:
             if cow_src is not None:
                 self.allocator.decref([cow_src])
             self.waiting.appendleft(req)
+            if tr is not None:
+                tr.on_requeue(req, self._clock(), step=self.steps)
             return
         pages = shared + new_pages
         self._admitted_seq += 1
@@ -548,24 +750,69 @@ class Engine:
                 self.prefix_tokens_reused += prefix_len
             else:
                 self.prefix_misses += 1
+        flight.get().record("serve_admit", request=req.uid,
+                            tenant=req.tenant, slot=slot, pages=need_total,
+                            new_pages=need_new, prefix_tokens=prefix_len,
+                            resumed=bool(req.tokens))
+        if tr is not None:
+            tr.on_alloc(req, t_adm0, self._clock(), step=self.steps,
+                        slot=slot, new_pages=need_new,
+                        shared_pages=len(shared), prefix_tokens=prefix_len,
+                        prefix_cache=self.prefix is not None,
+                        cow=cow_src is not None)
         if cow_src is not None:
+            t_cow0 = self._clock() if tr is not None else 0.0
             self._run_page_copy(cow_src, pages[len(shared)])
             self.allocator.decref([cow_src])  # unpin the clone source
+            if tr is not None:
+                self._sync()  # the span ends when the copy has
+                tr.on_cow_copy(req, t_cow0, self._clock(), step=self.steps,
+                               src=cow_src, dst=pages[len(shared)])
+        n_suffix = plen - prefix_len
+        t_pf0 = self._clock() if tr is not None else 0.0
         if self.prefix is not None:
-            n_suffix = plen - prefix_len
             self._assert_cow_writable(slot, prefix_len, n_suffix)
-            padded = np.zeros((1, self._bucket_for(n_suffix)), np.int64)
+            bucket = self._bucket_for(n_suffix)
+            padded = np.zeros((1, bucket), np.int64)
             padded[0, :n_suffix] = ids[prefix_len:]
             tok = self._run_block_prefill(padded, n_suffix=n_suffix,
                                           prefix_len=prefix_len,
                                           page_row=page_row)
-            self.prefix.insert(ids, pages)
         else:
-            padded = np.zeros((1, self._bucket_for(plen)), np.int64)
+            bucket = self._bucket_for(plen)
+            padded = np.zeros((1, bucket), np.int64)
             padded[0, :plen] = ids
             tok = self._run_prefill(padded, plen=plen, page_row=page_row)
+        if self.draft_model is not None:
+            # The drafter prefills the same suffix over its own pools
+            # (shared prefix pages hold drafter K/V from their first
+            # admission), so proposals start from a caught-up drafter.
+            dpadded = np.zeros((1, self._bucket_for(n_suffix)), np.int64)
+            dpadded[0, :n_suffix] = ids[prefix_len:]
+            self._run_block_prefill(dpadded, n_suffix=n_suffix,
+                                    prefix_len=prefix_len,
+                                    page_row=page_row, draft=True)
+            self._d_len[slot] = plen
+        if self.prefix is not None:
+            self.prefix.insert(ids, pages)
         now = self._clock()
+        flight.get().record("serve_prefill", request=req.uid, slot=slot,
+                            bucket=bucket, prompt_tokens=plen)
+        first = req.ttft_s is None
+        resumed = bool(req.tokens)  # read before emit appends
         req.emit(tok, now)
+        if tr is not None:
+            tr.on_prefill(req, t_pf0, now, step=self.steps, slot=slot,
+                          bucket=bucket,
+                          prefill_tokens=(n_suffix if self.prefix is not None
+                                          else plen),
+                          prefix_tokens=prefix_len, first=first,
+                          resumed=resumed)
+        if first:
+            metrics.get().observe("serve_ttft_s", req.ttft_s,
+                                  step=self.steps)
+            flight.get().record("serve_first_token", request=req.uid,
+                                slot=slot, ttft_s=round(req.ttft_s, 6))
         self._lengths[slot] = plen
         self._live[slot] = True
         self._feed[slot, 0] = tok
@@ -573,10 +820,18 @@ class Engine:
             self._retire(slot, now)
 
     def _decode_step(self) -> None:
+        tr = self._tracer
+        t_d0 = self._clock() if tr is not None else 0.0
         for i in np.flatnonzero(self._live):
             self._assert_cow_writable(int(i), int(self._lengths[i]), 1)
         toks = self._run_decode()
         now = self._clock()
+        if tr is not None:
+            # Decode accrues for every participant before the retire loop
+            # below finalizes any of them.
+            tr.on_decode(t_d0, now, step=self.steps,
+                         slots=[(int(i), self._slots[i].request)
+                                for i in np.flatnonzero(self._live)])
         for i in np.flatnonzero(self._live):
             req = self._slots[i].request
             req.emit(toks[i], now)
@@ -584,6 +839,105 @@ class Engine:
             self._feed[i, 0] = toks[i]
             if req.remaining == 0:
                 self._retire(int(i), now)
+
+    def _spec_decode_step(self) -> None:
+        """One speculative round for every live slot: the drafter proposes
+        up to ``spec_k`` tokens (catching up its one-token lag first), one
+        batched target forward verifies the whole ``[feed, proposals]``
+        block, and the longest prefix of proposals matching the target's
+        own greedy tokens is accepted, plus the target's next token after
+        it, so even an all-rejected round advances one token as
+        ``_decode_step`` does. Every emitted token is the target's argmax
+        given the same cached context.
+
+        Per slot, ``n <= remaining - 1`` (the round emits at most ``n + 1``
+        tokens), and the drafter steps only while a slot still needs
+        catch-up or proposals (the ``active`` mask), so its writes never
+        run past the slot's page budget."""
+        cfg = self.config
+        tr = self._tracer
+        t_d0 = self._clock() if tr is not None else 0.0
+        live_idx = [int(i) for i in np.flatnonzero(self._live)]
+        L = self._lengths.copy()
+        d = self._d_len.copy()
+        n_prop = np.zeros((cfg.max_slots,), np.int64)
+        steps_needed = np.zeros((cfg.max_slots,), np.int64)
+        proposals: list = [[] for _ in range(cfg.max_slots)]
+        for i in live_idx:
+            req = self._slots[i].request
+            lag = int(L[i]) - int(d[i])
+            n_prop[i] = min(cfg.spec_k, req.remaining - 1)
+            steps_needed[i] = lag + int(n_prop[i])
+            # The drafter writes [d, L + n) and the verify [L, L + n]:
+            # all of it must be on pages held exclusively.
+            self._assert_cow_writable(i, int(d[i]),
+                                      int(L[i]) + int(n_prop[i]) + 1
+                                      - int(d[i]))
+        feed = np.zeros((cfg.max_slots, 1), np.int64)
+        for r in range(int(steps_needed.max()) if live_idx else 0):
+            active = np.zeros((cfg.max_slots,), bool)
+            for i in live_idx:
+                if r >= steps_needed[i]:
+                    continue
+                active[i] = True
+                pos = int(d[i])
+                if pos <= int(L[i]):
+                    # Catch-up or first proposal: the token at this
+                    # position is known (prompt + emitted).
+                    req = self._slots[i].request
+                    n = len(req.prompt)
+                    feed[i, 0] = (req.prompt[pos] if pos < n
+                                  else req.tokens[pos - n])
+                else:
+                    feed[i, 0] = proposals[i][pos - int(L[i]) - 1]
+            toks = self._run_draft_decode(feed, d, active)
+            for i in live_idx:
+                if active[i]:
+                    if int(d[i]) >= int(L[i]):
+                        proposals[i].append(int(toks[i]))
+                    d[i] += 1
+        t_draft1 = self._clock() if tr is not None else 0.0
+        block = np.zeros((cfg.max_slots, cfg.spec_k + 1), np.int64)
+        n_new = np.zeros((cfg.max_slots,), np.int64)
+        for i in live_idx:
+            block[i, 0] = self._feed[i, 0]
+            block[i, 1:1 + int(n_prop[i])] = proposals[i][:int(n_prop[i])]
+            n_new[i] = int(n_prop[i]) + 1
+        greedy = self._run_verify(block, n_new)
+        now = self._clock()
+        self.spec_rounds += 1
+        round_proposed = round_accepted = 0
+        if tr is not None:
+            tr.on_decode(t_d0, now, step=self.steps,
+                         slots=[(i, self._slots[i].request,
+                                 {"spec": True, "proposed": int(n_prop[i])})
+                                for i in live_idx])
+        for i in live_idx:
+            req = self._slots[i].request
+            n = int(n_prop[i])
+            m = 0
+            while m < n and proposals[i][m] == int(greedy[i, m]):
+                m += 1
+            self.spec_proposed += n
+            self.spec_accepted += m
+            round_proposed += n
+            round_accepted += m
+            for j in range(m + 1):
+                req.emit(int(greedy[i, j]), now)
+            new_len = int(L[i]) + m + 1
+            self._lengths[i] = new_len
+            self._feed[i, 0] = int(greedy[i, m])
+            # The drafter's cache is valid through the last position fed a
+            # true token: at most one behind the target after a fully
+            # accepted round.
+            self._d_len[i] = min(int(d[i]), new_len)
+            if req.remaining == 0:
+                self._retire(i, now)
+        if tr is not None:
+            tr.on_spec_phases(
+                t_d0, t_draft1, now, step=self.steps,
+                rounds=int(steps_needed.max()) if live_idx else 0,
+                proposed=round_proposed, accepted=round_accepted)
 
     def _release_slot(self, slot: int) -> Request:
         """Return a slot's pages (``release`` + an emptied list, so a
@@ -595,6 +949,7 @@ class Engine:
         self._slots[slot] = None
         self._live[slot] = False
         self._lengths[slot] = 0
+        self._d_len[slot] = 0
         self._feed[slot, 0] = 0
         self._page_table[slot] = 0
         return entry.request
@@ -603,12 +958,21 @@ class Engine:
         req = self._release_slot(slot)
         req.finished_s = now
         self.finished.append(req)
+        flight.get().record("serve_retire", request=req.uid, slot=slot,
+                            tokens=len(req.tokens),
+                            preemptions=req.preemptions)
+        if self._tracer is not None:
+            self._tracer.finalize(req, now, status="ok")
 
     def _preempt(self, slot: int, now: float) -> None:
         req = self._release_slot(slot)
         req.preemptions += 1
         req._last_emit_s = None  # the gap back through the queue is not ITL
         self.preemptions += 1
+        flight.get().record("serve_preempt", request=req.uid, slot=slot,
+                            tenant=req.tenant, tokens_done=len(req.tokens))
+        if self._tracer is not None:
+            self._tracer.on_preempt(req, now, step=self.steps, slot=slot)
         # Bounded retry with exponential backoff: the scheduler owns the
         # policy, the engine applies it on every re-queue.
         req.retries += 1
@@ -624,7 +988,10 @@ class Engine:
 
     def _cancel(self, slot: int, now: float) -> None:
         """A live slot whose request blew its total-latency deadline."""
-        self._fail(self._release_slot(slot), "deadline", now)
+        req = self._release_slot(slot)
+        if self._tracer is not None:
+            self._tracer.on_cancel(req, now)
+        self._fail(req, "deadline", now)
 
     def _fail(self, req: Request, reason: str, now: float) -> None:
         req.failed = reason
@@ -632,5 +999,14 @@ class Engine:
         self.failed.append(req)
         if reason == "deadline":
             self.deadline_misses += 1
+            flight.get().record("serve_deadline_miss", request=req.uid,
+                                tenant=req.tenant,
+                                waited_s=round(now - req.arrival_s, 6),
+                                tokens_done=len(req.tokens))
         else:
             self.sheds += 1
+            flight.get().record("serve_shed", request=req.uid,
+                                tenant=req.tenant, reason=reason,
+                                tokens_done=len(req.tokens))
+        if self._tracer is not None:
+            self._tracer.on_fail(req, now, reason=reason)

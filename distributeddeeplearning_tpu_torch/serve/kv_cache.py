@@ -275,6 +275,11 @@ class PageAllocator:
         self.num_pages = int(num_pages)
         self._free = list(range(self.num_pages - 1, -1, -1))
         self._ref: dict[int, int] = {}
+        # Running totals for the engine's gauges: how often the pool was
+        # asked, and how often it said no (an allocation stall that the
+        # occupancy gauge cannot tell from healthy high use).
+        self.alloc_calls = 0
+        self.alloc_failures = 0
 
     @property
     def free_pages(self) -> int:
@@ -289,7 +294,9 @@ class PageAllocator:
         when the pool cannot cover them: admission's budget check."""
         if n < 0:
             raise ValueError(f"alloc({n})")
+        self.alloc_calls += 1
         if n > len(self._free):
+            self.alloc_failures += 1
             return None
         pages = [self._free.pop() for _ in range(n)]
         for p in pages:

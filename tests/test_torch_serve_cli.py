@@ -6,10 +6,13 @@ from a flax-layout ``.npz``: every request's greedy tokens must equal JAX
 ``generate(use_cache=True)`` of that request alone, for both families; the
 results file holds each uid's tokens, state, TTFT and inter-token gaps and
 the leak check; arrivals are admitted when their time has come; the exit
-code is 0 only for a clean drain. The supervisor's flags (several replicas,
-autoscale) and a speculative config are refused, naming their slice.
+code is 0 only for a clean drain; with ``DDL_FLIGHT_DIR`` set the run's
+lifecycle events reach the flight recorder, and the results file sums up
+the engine's gauges. The supervisor's flags (several replicas, autoscale)
+and a drafter of a later slice are refused, naming their slice.
 """
 
+import collections
 import json
 import os
 import re
@@ -115,7 +118,9 @@ def test_arrivals_wait_for_their_time():
     (["--empty"], "non-empty JSON list")])
 def test_cli_refusals(tmp_path, capsys, extra, match):
     requests = [] if extra == ["--empty"] else _requests()
-    config = ({"spec_draft_model": "gpt_nano", "spec_k": 2}
+    # --config-spec held a gpt_nano drafter until the engine carried it; a
+    # drafter of a later slice's registry entry keeps the case's ID.
+    config = ({"spec_draft_model": "gpt_tiny_pp", "spec_k": 2}
               if extra == ["--config-spec"] else {})
     argv = _argv(tmp_path, "gpt", requests, **config) + ["--device", "cpu"]
     if extra[0] not in ("--empty", "--config-spec"):
@@ -170,3 +175,37 @@ def test_module_entry_point(tmp_path):
     engine.run_until_idle()
     assert [out["results"][str(i)]["tokens"] for i in range(3)] == [
         r.tokens for r in reqs]
+
+
+def test_cli_records_flight_events_and_gauges(tmp_path, monkeypatch):
+    """With ``DDL_FLIGHT_DIR`` set, the entry point appends the engine's
+    lifecycle events to ``flight.p0.jsonl`` under ``DDL_RUN_ID``; the
+    results file sums up the engine's gauges, one TTFT sample a request;
+    both singletons are off again after the run."""
+    from distributeddeeplearning_tpu_torch.observability import (
+        flight, metrics)
+
+    flight_dir = tmp_path / "flight"
+    monkeypatch.setenv("DDL_FLIGHT_DIR", str(flight_dir))
+    monkeypatch.setenv("DDL_RUN_ID", "run-cli")
+    requests = _requests()[:3]
+    assert cli.main(_argv(tmp_path, "gpt", requests)
+                    + ["--device", "cpu"]) == 0
+    out = json.loads((tmp_path / "out.json").read_text())
+    assert out["flight_file"] == str(flight_dir / "flight.p0.jsonl")
+    events, errors = flight.read_all(str(flight_dir))
+    assert errors == [] and {e["run"] for e in events} == {"run-cli"}
+    kinds = collections.Counter(e["ev"] for e in events)
+    for ev in ("serve_admit", "serve_prefill", "serve_first_token",
+               "serve_retire"):
+        assert kinds[ev] == len(requests), ev
+    assert kinds["serve_shutdown"] == 1
+    gauges = out["metrics"]["metrics"]
+    assert out["metrics"]["run"] == "run-cli"
+    assert gauges["serve_ttft_s"]["samples"] == len(requests)
+    assert sorted(gauges["serve_ttft_s"]["series_tail"][i][1]
+                  for i in range(len(requests))) == sorted(
+        r["ttft_s"] for r in out["results"].values())
+    assert gauges["serve_live_slots"]["max"] <= CONFIG["max_slots"]
+    assert not flight.get().enabled and metrics.get().aggregate()[
+        "metrics"] == {}

@@ -7,7 +7,8 @@ families, preemption (a tenant's page cap tightened mid-run, a starved
 request), and deadlines, bounded retry with backoff and brownout in one
 sequence. Every request's tokens, outcome and times, the engine counters
 and the free pages at the end must be equal. The prefix cache's scenarios
-are in test_torch_serve_prefix.py, the paged model branches in
+are in test_torch_serve_prefix.py, speculative decoding's in
+test_torch_serve_spec.py, the paged model branches in
 test_torch_serve_models.py. Around them, the refusals of this slice.
 """
 
@@ -156,11 +157,20 @@ def test_submit_refuses(prompt, max_new, match):
     ({"page_size": 64}, "decode bound"),
     ({"prefill_buckets": (32,)}, "largest prefill bucket"),
     ({"prefill_buckets": ()}, "at least one"),
-    ({"spec_draft_model": "gpt_nano", "spec_k": 3},
+    # kw3 and kw4 held the speculative configs until the engine carried
+    # them: a drafter of a later slice's registry entry keeps their IDs.
+    ({"spec_draft_model": "gpt_tiny_pp", "spec_k": 3},
      "speculative decoding .* later slice"),
-    ({"spec_k": 2}, "speculative decoding .* later slice"),
+    ({"spec_draft_model": "gpt2_small_pp", "spec_k": 2},
+     "speculative decoding .* later slice"),
     ({"fault_plan": "page_leak@1"}, "fault plans .* later slice"),
-    ({"model": "bert_tiny"}, "decode")])
+    ({"model": "bert_tiny"}, "decode"),
+    ({"spec_k": 2}, "needs BOTH spec_draft_model and spec_k"),
+    ({"spec_draft_model": "gpt_nano"}, "needs BOTH"),
+    # gpt_nano's 128 positions against 64-token pages x 4 = 256.
+    ({"page_size": 64, "model": "llama_tiny",
+      "spec_draft_model": "gpt_nano", "spec_k": 2},
+     "drafter's decode bound")])
 def test_engine_refuses(kw, match):
     with pytest.raises(ValueError, match=match):
         _cpu_engine(**kw)

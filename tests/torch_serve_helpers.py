@@ -23,7 +23,7 @@ from tests.torch_port_helpers import flax_params
 VOCAB = 97
 COUNTERS = ("steps", "preemptions", "sheds", "deadline_misses", "retries",
             "prefix_hits", "prefix_misses", "prefix_tokens_reused",
-            "cow_copies")
+            "cow_copies", "spec_rounds", "spec_proposed", "spec_accepted")
 
 
 def fake_clock():
@@ -39,7 +39,8 @@ def fake_clock():
 
 def engine_pair(model: str = "gpt_tiny", **kw):
     """``(jax_engine, port_engine)`` over one ``ServeConfig`` (the JAX
-    tests' defaults), the port's weights carried from the JAX engine's."""
+    tests' defaults), the port's weights carried from the JAX engine's (the
+    drafter's too, under speculative decoding)."""
     kw.setdefault("vocab_size", VOCAB)
     kw.setdefault("max_slots", 2)
     kw.setdefault("page_size", 4)
@@ -51,8 +52,11 @@ def engine_pair(model: str = "gpt_tiny", **kw):
                                               compile_cache_dir="off", **kw),
                           clock=fake_clock())
     state = params_from_flax(flax_params(jeng._fresh))
+    draft = (params_from_flax(flax_params(jeng._draft_fresh))
+             if jeng._draft_model is not None else None)
     teng = tengine.Engine(tengine.ServeConfig(model=model, **kw),
-                          state_dict=state, device="cpu", clock=fake_clock())
+                          state_dict=state, draft_state_dict=draft,
+                          device="cpu", clock=fake_clock())
     return jeng, teng
 
 
